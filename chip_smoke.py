@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""Smoke run of telomeri_tpu_torch on one CUDA GPU (the quickest proof that the
+port still builds, agrees with itself and scaffolds on the card).
+
+    python3 chip_smoke.py            # all phases, from the root of a checkout
+
+Phases, one JSON line each; any failure raises and the exit code is not 0:
+  0 device   needs torch.cuda; prints nvidia-smi's name and power limit
+  1 build    nvcc builds csrc/*.cu for sm_90a from the checkout
+  2 scoring  both scoring kernels (4 and 2 outputs) bitwise equal to the plain
+             torch version on the card and to the numpy oracle, n = 1 .. 64M;
+             kernel and plain times at 64M rows
+  3 walks    simulates the E. coli preset (reused by phase 5); on the lambda
+             and E. coli graphs the walk-scan kernel's records and resolved
+             walks are bitwise equal to the plain scan on the card and on the
+             CPU; kernel and plain times, also at the rescue round's batch cap
+  4 lambda   run_pipeline on testdata/lambda with device scoring on the card:
+             byte-identical to golden_scaffolds.fa, both path kernels launched
+  5 ecoli    the CLI `scaffold --device cuda --device-scoring on` on the E. coli
+             preset, validated against its genome (1 scaffold, n_placed == 1,
+             mean identity > 0.98); launch counts are zeroed just before and read
+             just after this run
+Then the kernels' summary line, and last {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LAMBDA = os.path.join(ROOT, "testdata", "lambda")
+INPUTS = ("contigs.fa", "reads.fa", "read2contig.paf", "read2read.paf")
+SOURCES = {
+    "walk_scan": ("telomeri_tpu_torch/csrc/walk_scan.cu",
+                  "telomeri_tpu/kernels/walk_vmem.py:61"),
+    "score_os_es2": ("telomeri_tpu_torch/csrc/scoring.cu",
+                     "telomeri_tpu/kernels/scoring.py:86"),
+}
+PATH_KERNELS = ("walk_scan", "score_os_es2")   # what the scaffold path launches
+DEVICE = "cuda"
+SCORING_ROWS = (1, 1000, 1_000_003, 64 * 2**20)
+
+
+def emit(phase: str, **kv) -> None:
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over iters launches (CUDA events), after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def paired_ms(kernel, plain, iters: int) -> tuple[float, float]:
+    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, iters)
+    k1 = cuda_ms(kernel, iters)
+    k2 = cuda_ms(kernel, iters)
+    p2 = cuda_ms(plain, iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| over the elements (0.0 for empty tensors)."""
+    d = (a.cpu().double() - b.cpu().double()).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# --- phases --------------------------------------------------------------------
+
+def phase_device() -> None:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    print(line, flush=True)
+    emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         nvidia_smi=line, torch=torch.__version__, cuda=torch.version.cuda,
+         capability=list(torch.cuda.get_device_capability(0)))
+
+
+def phase_build() -> None:
+    from telomeri_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    path = build.build(verbose=True)
+    build.load()
+    ptxas = [ln.strip() for ln in build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit("build", seconds=round(time.perf_counter() - t0, 3),
+         nvcc_seconds=round(build.build_seconds, 3), library=os.path.relpath(path, ROOT),
+         ptxas=ptxas)
+
+
+def _geometry(rng, n: int):
+    import numpy as np
+
+    g = [rng.integers(0, 5000, n), rng.integers(0, 6000, n), rng.integers(0, 6000, n),
+         rng.integers(0, 6000, n), rng.integers(0, 2000, n), rng.integers(0, 2000, n),
+         rng.integers(-30000, 30000, n), rng.integers(-30000, 30000, n)]
+    g = [a.astype(np.int32) for a in g]
+    if n >= 8:   # edge cases: bl = 0, values above 2**24, extreme negatives
+        g[1][:4] = 0
+        big = rng.integers(2**24, 2**31 - 1, n // 4, dtype=np.int64).astype(np.int32)
+        for a in (g[0], g[2], g[6], g[7]):
+            a[: len(big)] = big
+        g[6][-4:] = -(2**31) + 1
+    return g
+
+
+def phase_scoring(results: dict) -> None:
+    import numpy as np
+    import torch
+
+    from telomeri_tpu_torch.kernels import scoring
+
+    rng = np.random.default_rng(2026)
+    checked = []
+    for n in SCORING_ROWS:
+        g = _geometry(rng, n)
+        want = [torch.from_numpy(a) for a in scoring.score_arrays_np(*g)]
+        geom = [torch.from_numpy(a).to(DEVICE) for a in g]
+        for outputs, cols in ((4, (0, 1, 2, 3)), (2, (1, 3))):
+            got = scoring.score_overlaps_cuda(*geom, outputs=outputs)
+            plain = scoring.score_overlaps_torch(*geom, outputs=outputs)
+            torch.cuda.synchronize()
+            for c, k, p in zip(cols, got, plain):
+                require(same_bits(k, p), f"scoring n={n} outputs={outputs} col {c}: kernel != plain")
+                require(same_bits(k, want[c]), f"scoring n={n} outputs={outputs} col {c}: kernel != numpy")
+            checked.append([n, outputs])
+        if n == SCORING_ROWS[-1]:
+            for outputs, name in ((2, "score_os_es2"), (4, "score_overlaps")):
+                ms, plain_ms = paired_ms(
+                    lambda: scoring.score_overlaps_cuda(*geom, outputs=outputs),
+                    lambda: scoring.score_overlaps_torch(*geom, outputs=outputs), 10)
+                gb = n * (32 + 4 * outputs) / 1e9
+                results[name + "@64M"] = dict(ms=ms, plain_ms=plain_ms)
+                emit("scoring_time", kernel=name, rows=n, ms=ms, plain_ms=plain_ms,
+                     gb_per_s=gb / (ms / 1e3), plain_gb_per_s=gb / (plain_ms / 1e3),
+                     bytes_per_row=32 + 4 * outputs)
+        del geom, want
+    emit("scoring", ok=True, bitwise_equal=checked)
+
+
+def _mc_inputs(graph, plan, cfg, device):
+    from telomeri_tpu_torch.walk import engine
+
+    lo, hi = plan.sections["mc"]
+    pd = engine.plan_to_device(engine._slice_plan(plan, lo, hi), device)
+    gd = engine.graph_to_device(graph, device)
+    bits = engine.stable_bits_table(cfg.mc_seed, pd.uid, cfg.max_steps)
+    return gd, pd, bits
+
+
+def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True) -> None:
+    import torch
+
+    from telomeri_tpu_torch.kernels import walk_scan
+    from telomeri_tpu_torch.walk import engine
+
+    gd, pd, bits = _mc_inputs(graph, plan, cfg, DEVICE)
+    s = cfg.max_steps
+    w = pd.start.shape[0]
+    kern = walk_scan.walk_scan_cuda(gd.wide, pd.start, bits, s)
+    plain = walk_scan.walk_scan_torch(gd.wide, pd.start, bits, s)
+    torch.cuda.synchronize()
+    err = max_abs_err(kern, plain)
+    require(same_bits(kern, plain), f"{name}: walk-scan records differ from the plain scan "
+                                    f"(max abs err {err})")
+    resolve = lambda r, p, g: engine.resolve_mc_events(
+        p, *r, n_nodes=int(g.wide.shape[0]), n_anchors=graph.n_anchors, max_steps=s)
+    res_k, res_p = resolve(kern, pd, gd), resolve(plain, pd, gd)
+    for f, a, b in zip(res_k._fields, res_k, res_p):
+        require(same_bits(a, b), f"{name}: resolved {f} differs (card)")
+    if cpu_check:
+        gd_c, pd_c, bits_c = _mc_inputs(graph, plan, cfg, "cpu")
+        cpu = walk_scan.walk_scan(gd_c.wide, pd_c.start, bits_c, s)
+        require(same_bits(kern, cpu), f"{name}: walk-scan records differ from the CPU scan")
+        res_c = resolve(cpu, pd_c, gd_c)
+        for f, a, b in zip(res_k._fields, res_k, res_c):
+            require(same_bits(a, b), f"{name}: resolved {f} differs (CPU)")
+    ms, plain_ms = paired_ms(lambda: walk_scan.walk_scan_cuda(gd.wide, pd.start, bits, s),
+                             lambda: walk_scan.walk_scan_torch(gd.wide, pd.start, bits, s), 5)
+    section_ms = cuda_ms(lambda: engine.run_walks_mc(
+        gd, pd, cfg.mc_seed, n_anchors=graph.n_anchors, max_steps=s), 5)
+    results[f"walk_scan@{name}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+    emit("walk_scan", graph=name, walks=w, max_steps=s, h=gd.h, nodes=int(gd.wide.shape[0]),
+         table_mb=engine.device_table_bytes(graph) / 1e6, ms=ms, plain_ms=plain_ms,
+         walks_per_s=w / (ms / 1e3), plain_walks_per_s=w / (plain_ms / 1e3),
+         mc_section_ms=section_ms, mc_section_walks_per_s=w / (section_ms / 1e3),
+         successful=int(res_k.success.sum()), cpu_checked=cpu_check)
+
+
+def _build(data_dir: str, cfg):
+    from telomeri_tpu_torch.pipeline import build_graph, load_inputs, plan_walks
+
+    contigs, reads, paf = load_inputs(*[os.path.join(data_dir, f) for f in INPUTS])
+    edges, graph = build_graph(contigs, reads, paf, cfg, device=DEVICE)
+    return edges, graph, plan_walks(graph, cfg)
+
+
+def phase_walks(ecoli_dir: str, results: dict) -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from telomeri_tpu_torch.cli.main import main as cli
+    from telomeri_tpu_torch.kernels import scoring
+    from telomeri_tpu_torch.pipeline import ScaffoldConfig
+    from telomeri_tpu_torch.walk.rescue import MAX_RESCUE_WALKS, RESCUE_UID_BASE
+
+    with open(os.path.join(LAMBDA, "config.json")) as f:
+        lam_cfg = ScaffoldConfig.from_json(f.read())
+    _, lam_graph, lam_plan = _build(LAMBDA, lam_cfg)
+    _check_walk_scan("lambda", lam_graph, lam_plan, lam_cfg, results)
+
+    t0 = time.perf_counter()
+    require(cli(["simulate", "--preset", "ecoli", "--out", ecoli_dir]) == 0, "simulate failed")
+    emit("simulate", preset="ecoli", seconds=round(time.perf_counter() - t0, 3))
+    cfg = ScaffoldConfig(device_scoring="on")
+    t0 = time.perf_counter()
+    edges, graph, plan = _build(ecoli_dir, cfg)
+    emit("ecoli_graph", seconds=round(time.perf_counter() - t0, 3), edges=len(edges),
+         nodes=graph.n_nodes, k=graph.max_degree, walks=plan.n_active,
+         sections=plan.sections)
+    _check_walk_scan("ecoli", graph, plan, cfg, results)
+
+    # the rescue round's batch cap: MAX_RESCUE_WALKS MC walks from contig ends
+    ends = np.flatnonzero(graph.anchor_mask() & (graph.deg > 0)).astype(np.int32)
+    w = MAX_RESCUE_WALKS
+    big = dataclasses.replace(
+        plan, start=np.resize(ends, w), first_edge=np.full(w, -1, np.int32),
+        mode=np.full(w, 2, np.int32),
+        uid=(RESCUE_UID_BASE + np.arange(w)).astype(np.int32),
+        active=np.ones(w, bool), sections={"greedy": (0, 0), "mc": (0, w)})
+    _check_walk_scan("ecoli_rescue_cap", graph, big, cfg, results, cpu_check=False)
+
+    # the rescore kernel at the E. coli edge count (the main path's shape)
+    geom = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(DEVICE)
+            for a in edges.geom_args()]
+    got = scoring.score_overlaps_cuda(*geom, outputs=2)
+    plain = scoring.score_overlaps_torch(*geom, outputs=2)
+    err = max(max_abs_err(k, p) for k, p in zip(got, plain))
+    for k, p, h in zip(got, plain, (edges.os_, edges.es)):
+        require(same_bits(k, p) and same_bits(k, torch.from_numpy(h)),
+                f"ecoli rescore: kernel differs (max abs err {err})")
+    ms, plain_ms = paired_ms(lambda: scoring.score_overlaps_cuda(*geom, outputs=2),
+                             lambda: scoring.score_overlaps_torch(*geom, outputs=2), 20)
+    results["score_os_es2@ecoli"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+    emit("scoring_time", kernel="score_os_es2", rows=len(edges), ms=ms, plain_ms=plain_ms)
+
+
+def phase_lambda(tmp: str) -> None:
+    from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from telomeri_tpu_torch.pipeline import ScaffoldConfig, run_pipeline
+
+    with open(os.path.join(LAMBDA, "config.json")) as f:
+        cfg = json.load(f)
+    cfg = ScaffoldConfig(**{**cfg, "device_scoring": "on"})
+    out = os.path.join(tmp, "lambda.fa")
+    reset_launch_counts()
+    res = run_pipeline(*[os.path.join(LAMBDA, f) for f in INPUTS], out, cfg, device=DEVICE)
+    counts = launch_counts()
+    with open(out, "rb") as a, open(os.path.join(LAMBDA, "golden_scaffolds.fa"), "rb") as b:
+        require(a.read() == b.read(), "lambda FASTA differs from golden_scaffolds.fa")
+    for k in PATH_KERNELS:
+        require(counts[k] > 0, f"lambda run never launched {k}")
+    m = res.metrics.as_dict()
+    emit("lambda", ok=True, golden_identical=True, launches=counts,
+         scoring_backend=m["metrics"]["scoring_backend"],
+         timings_s={k: round(v, 4) for k, v in m["timings_s"].items()})
+
+
+def phase_ecoli(ecoli_dir: str) -> dict:
+    from telomeri_tpu_torch.cli.main import main as cli
+    from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    out = os.path.join(ecoli_dir, "scaffolds.fa")
+    args = ["scaffold", "--device", DEVICE, "--device-scoring", "on", "--out", out]
+    for flag, f in zip(("--contigs", "--reads", "--paf-read-contig", "--paf-read-read"),
+                       INPUTS):
+        args += [flag, os.path.join(ecoli_dir, f)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli(args)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    require(rc == 0, f"scaffold exited {rc}")
+    for k in PATH_KERNELS:
+        require(counts[k] > 0, f"E. coli run never launched {k}")
+    with open(out + ".metrics.json") as f:
+        m = json.load(f)
+    timings, metrics = m["timings_s"], m["metrics"]
+    with open(out) as f:
+        n_scaffolds = sum(1 for ln in f if ln.startswith(">"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "telomeri_tpu_torch.cli.main", "validate",
+         "--scaffolds", out, "--genome", os.path.join(ecoli_dir, "genome.fa"),
+         "--stride", "64", "--index-cache", "off", "--jobs", str(os.cpu_count() or 1)],
+        capture_output=True, text=True, timeout=900, cwd=ROOT)
+    require(proc.returncode == 0, f"validate failed: {proc.stderr[-2000:]}")
+    rep = json.loads(proc.stdout)
+    emit("ecoli", wall_s=round(wall, 3), validate_s=round(time.perf_counter() - t0, 3),
+         n_scaffolds=n_scaffolds, n_placed=rep["n_placed"],
+         mean_identity=rep["mean_identity"], launches=counts,
+         timings_s={k: round(v, 4) for k, v in timings.items()},
+         n_walks=metrics["n_walks"], walk_stage_walks_per_s=metrics["n_walks"] / timings["run_walks"],
+         counters={k: metrics.get(k) for k in (
+             "n_walks_successful", "n_bridges_candidate", "n_bridges_accepted",
+             "n_bridges_rescued", "n_scaffolds", "parser_backend", "scoring_backend")})
+    require(n_scaffolds == 1, f"E. coli gave {n_scaffolds} scaffolds, want 1")
+    require(rep["n_placed"] == 1, f"n_placed {rep['n_placed']}, want 1")
+    require(rep["mean_identity"] > 0.98, f"mean identity {rep['mean_identity']} <= 0.98")
+    return counts
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    import telomeri_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ecoli_dir = os.path.join(work, "ecoli")
+    results: dict = {}
+    try:
+        phase_device()
+        phase_build()
+        phase_scoring(results)
+        phase_walks(ecoli_dir, results)
+        phase_lambda(work)
+        counts = phase_ecoli(ecoli_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    kernels = []
+    for name in PATH_KERNELS:   # timed at the E. coli path's shapes (phase 3)
+        src, replaces = SOURCES[name]
+        t = results[f"{name}@ecoli"]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=counts[name], max_abs_err=t["max_abs_err"],
+                            ms=t["ms"], plain_ms=t["plain_ms"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

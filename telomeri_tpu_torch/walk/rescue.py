@@ -1,0 +1,110 @@
+"""Rescue rounds, single device: the port of telomeri_tpu/walk/rescue.py.
+
+After conflict resolution, still-free walkable contig ends are re-walked at
+rescue_walks_per_end MC walks each through the SAME grouping and cut-read gate
+as the base round (read_diverse support); rescue bridges are conflict-resolved
+INTO the accepted set, so a round only adds bridges on free ends.
+
+free_walkable_ends and build_rescue_plan are copies of the reference's: its
+module imports its consensus grouping, which imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from telomeri_tpu.config import ScaffoldConfig
+from telomeri_tpu.consensus.evidence import read_diversity_gate
+from telomeri_tpu.graph.tensorize import GraphTensors
+from telomeri_tpu.scaffold.bridge import Bridge, resolve_with_blockers
+from telomeri_tpu.scaffold.stitch import extract_path
+from telomeri_tpu.utils.logging import log
+from telomeri_tpu.walk.plan import MODE_MC, WalkPlan
+from telomeri_tpu_torch.consensus.grouping import compress, group_and_select, summarize
+from telomeri_tpu_torch.walk.engine import GraphDev, graph_to_device, run_walks_sectioned
+
+RESCUE_UID_BASE = 1 << 30   # rescue uids never collide with base plan uids
+MAX_RESCUE_WALKS = 1 << 20  # hard batch cap: many free ends -> fewer walks/end
+
+
+def free_walkable_ends(graph: GraphTensors, accepted: list[Bridge],
+                       blocked_ends=frozenset()) -> list[int]:
+    """Oriented start nodes of contig ends that are not used by an accepted
+    bridge, not claimed by a cut-read blocker, and walkable (out-degree > 0)."""
+    used = {(b.end_a.contig, b.end_a.right) for b in accepted}
+    used |= {(b.end_b.contig, b.end_b.right) for b in accepted}
+    used |= {(e.contig, e.right) for e in blocked_ends}
+    deg = np.asarray(graph.deg)
+    out = []
+    for c in range(graph.n_anchors):
+        for right, u in ((True, 2 * c), (False, 2 * c + 1)):
+            if (c, right) not in used and deg[u] > 0:
+                out.append(u)
+    return out
+
+
+def build_rescue_plan(ends: list[int], cfg: ScaffoldConfig,
+                      round_ix: int = 0) -> tuple[WalkPlan, int]:
+    """All-MC WalkPlan for one rescue round, the batch capped at
+    MAX_RESCUE_WALKS (the end list is truncated when even one walk per end
+    would exceed it). Returns (plan, uid0); uids are uid0 + row."""
+    if len(ends) > MAX_RESCUE_WALKS:
+        log.warning(
+            "rescue round %d: %d free ends exceed the %d-walk budget; walking "
+            "the first %d ends this round (rest deferred to later rounds)",
+            round_ix, len(ends), MAX_RESCUE_WALKS, MAX_RESCUE_WALKS)
+        ends = ends[:MAX_RESCUE_WALKS]
+    per_end = max(1, min(cfg.rescue_walks_per_end, MAX_RESCUE_WALKS // len(ends)))
+    starts = np.repeat(np.array(ends, np.int32), per_end)
+    n_pad = -len(starts) % cfg.walk_batch_multiple
+    active = np.concatenate([np.ones(len(starts), bool), np.zeros(n_pad, bool)])
+    starts = np.concatenate([starts, np.zeros(n_pad, np.int32)])
+    w = len(starts)
+    if w >= 1 << 24:
+        raise ValueError(f"rescue batch {w} overflows its uid block")
+    uid0 = RESCUE_UID_BASE + round_ix * (1 << 24)
+    plan = WalkPlan(
+        start=starts, first_edge=np.full(w, -1, np.int32),
+        mode=np.full(w, MODE_MC, np.int32),
+        uid=(uid0 + np.arange(w)).astype(np.int32),
+        active=active, sections={"greedy": (0, 0), "mc": (0, w)})
+    return plan, uid0
+
+
+def run_rescue_round(
+    graph: GraphTensors, cfg: ScaffoldConfig, accepted: list[Bridge],
+    round_ix: int = 0, gd: GraphDev | None = None, blocked_ends=frozenset(),
+    *, device,
+):
+    """One rescue round on `device`. Returns (new_bridges, paths, blocked_ends'):
+    paths maps each new bridge's rep_uid to its WalkPath for the stitcher;
+    ([], {}, blocked_ends) when nothing qualified."""
+    ends = free_walkable_ends(graph, accepted, blocked_ends)
+    if not ends or cfg.rescue_walks_per_end == 0:
+        return [], {}, blocked_ends
+    plan, uid0 = build_rescue_plan(ends, cfg, round_ix)
+    if gd is None:
+        gd = graph_to_device(graph, device)
+    res = run_walks_sectioned(gd, plan, cfg.mc_seed, n_anchors=graph.n_anchors,
+                              max_steps=cfg.max_steps)
+    # the same grouping and evidence rules as the base round, read_diverse always
+    summary = summarize(res, torch.from_numpy(plan.uid),
+                        virtual_base=graph.virtual_base)
+    cons = group_and_select(
+        summary, n_anchors=graph.n_anchors, group_window=cfg.group_window,
+        min_support=cfg.min_group_support, grouping=cfg.grouping,
+        support="read_diverse").to_numpy()
+    res = res.to_numpy()
+    rows, blocked_rows = read_diversity_gate(
+        compress(cons), cons, res, graph.virtual_base, split_read=graph.split_read)
+    new, blocked_ends = resolve_with_blockers(
+        rows, blocked_rows, pre_accepted=accepted, pre_blocked=blocked_ends)
+    if not new:
+        return [], {}, blocked_ends
+    paths = {}
+    for b in new:
+        i = b.rep_uid - uid0    # rescue uids are row-aligned
+        paths[b.rep_uid] = extract_path(res.nodes[i], res.eids[i], int(res.steps[i]),
+                                        virtual_base=graph.virtual_base)
+    return new, paths, blocked_ends

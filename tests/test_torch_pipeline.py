@@ -1,0 +1,197 @@
+"""The port's pipeline end to end, on CPU tensors: the lambda golden FASTA byte
+for byte (library and CLI), the reference's FASTA and metric counters on the toy
+simulation, and no jax anywhere in the port's import chain. The gpu-marked test
+holds the CUDA kernels against their plain versions and runs only on a card."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from telomeri_tpu.config import ScaffoldConfig
+from telomeri_tpu_torch.cli.main import main as cli_main
+from telomeri_tpu_torch.pipeline import run_pipeline
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+LAMBDA = os.path.join(ROOT, "testdata", "lambda")
+INPUTS = ("contigs.fa", "reads.fa", "read2contig.paf", "read2read.paf")
+COUNTERS = ("n_walks", "n_walks_successful", "n_bridges_candidate",
+            "n_bridges_accepted", "n_bridges_rescued", "n_scaffolds")
+
+
+def _golden() -> bytes:
+    with open(os.path.join(LAMBDA, "golden_scaffolds.fa"), "rb") as f:
+        return f.read()
+
+
+def _lambda_cfg(**kw) -> ScaffoldConfig:
+    with open(os.path.join(LAMBDA, "config.json")) as f:
+        cfg = json.loads(f.read())
+    return ScaffoldConfig(**{**cfg, **kw})
+
+
+@pytest.mark.parametrize("device_scoring", ["auto", "on"])
+def test_lambda_golden_on_cpu(tmp_path, device_scoring):
+    out = str(tmp_path / "scaffolds.fa")
+    res = run_pipeline(*[os.path.join(LAMBDA, f) for f in INPUTS], out,
+                       _lambda_cfg(device_scoring=device_scoring), device="cpu")
+    with open(out, "rb") as f:
+        assert f.read() == _golden()
+    backend = res.metrics.as_dict()["metrics"]["scoring_backend"]
+    assert backend == ("torch" if device_scoring == "on" else "numpy")
+
+
+def test_toy_simulation_matches_reference(tmp_path, toy_dataset_dir):
+    from telomeri_tpu.pipeline import run_pipeline as ref_run_pipeline
+
+    args = [os.path.join(toy_dataset_dir, f) for f in INPUTS]
+    cfg = ScaffoldConfig(mc_walks_per_end=50, max_steps=32, rescue_walks_per_end=200)
+    want = ref_run_pipeline(*args, str(tmp_path / "ref.fa"), cfg)
+    got = run_pipeline(*args, str(tmp_path / "port.fa"), cfg, device="cpu")
+    with open(tmp_path / "ref.fa", "rb") as a, open(tmp_path / "port.fa", "rb") as b:
+        assert a.read() == b.read()
+    mw, mg = want.metrics.as_dict()["metrics"], got.metrics.as_dict()["metrics"]
+    assert {k: mg[k] for k in COUNTERS} == {k: mw[k] for k in COUNTERS}
+    assert got.bridges == want.bridges and mg["n_scaffolds"] >= 1
+
+
+def test_rescue_round_matches_reference(toy_dataset_dir):
+    """A rescue round over every contig end (nothing accepted yet): the same new
+    bridges, stitch paths and blocked ends as the reference's round."""
+    from telomeri_tpu.walk.rescue import run_rescue_round as ref_rescue
+    from telomeri_tpu_torch.pipeline import build_graph, load_inputs
+    from telomeri_tpu_torch.walk.rescue import run_rescue_round
+
+    cfg = ScaffoldConfig(max_steps=32, rescue_walks_per_end=300)
+    contigs, reads, paf = load_inputs(*[os.path.join(toy_dataset_dir, f) for f in INPUTS])
+    _, graph = build_graph(contigs, reads, paf, cfg, device="cpu")
+    want = ref_rescue(graph, cfg, [], 0)
+    got = run_rescue_round(graph, cfg, [], 0, device="cpu")
+    assert got[0] == want[0] and len(got[0]) >= 2
+    assert got[2] == want[2]
+    assert {u: (p.nodes, p.eids) for u, p in got[1].items()} == \
+        {u: (p.nodes, p.eids) for u, p in want[1].items()}
+
+
+def test_cli_scaffold_cpu_reproduces_golden(tmp_path):
+    out = str(tmp_path / "cli.fa")
+    rc = cli_main(["scaffold", "--device", "cpu",
+                   "--config", os.path.join(LAMBDA, "config.json"),
+                   "--contigs", os.path.join(LAMBDA, "contigs.fa"),
+                   "--reads", os.path.join(LAMBDA, "reads.fa"),
+                   "--paf-read-contig", os.path.join(LAMBDA, "read2contig.paf"),
+                   "--paf-read-read", os.path.join(LAMBDA, "read2read.paf"),
+                   "--out", out])
+    assert rc == 0
+    with open(out, "rb") as f:
+        assert f.read() == _golden()
+    with open(out + ".metrics.json") as f:
+        assert json.load(f)["metrics"]["device"] == "cpu"
+
+
+def test_port_never_imports_jax(tmp_path):
+    """A fresh interpreter: import the whole port and run its lambda pipeline."""
+    code = f"""
+import sys
+import telomeri_tpu_torch.cli.main, telomeri_tpu_torch.interop, telomeri_tpu_torch.kernels.build
+from telomeri_tpu.config import ScaffoldConfig
+from telomeri_tpu_torch.pipeline import run_pipeline
+import json
+d = {LAMBDA!r}
+cfg = ScaffoldConfig(**json.load(open(d + "/config.json")), device_scoring="on")
+run_pipeline(*[d + "/" + f for f in {INPUTS!r}], {str(tmp_path / "x.fa")!r}, cfg,
+             device="cpu")
+print("JAX_LOADED" if "jax" in sys.modules else "JAX_ABSENT")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.path.abspath(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "JAX_ABSENT"
+
+
+def test_chip_smoke_names_only_the_port():
+    """chip_smoke.py reaches the system through the port's modules alone."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    assert any(n.startswith("telomeri_tpu_torch") for n in names)
+    for n in names:
+        top = n.split(".")[0]
+        assert top not in ("jax", "jaxlib", "telomeri_tpu"), n
+
+
+def test_probe_on_cpu():
+    """The timing probe's three parts at a small size on CPU tensors."""
+    from telomeri_tpu_torch import probe
+
+    runs = probe.pipeline_runs(LAMBDA, "cpu", runs=1)
+    assert len(runs["wall_s"]) == 1 and runs["wall_s"][0] > 0
+    assert {"parse_paf", "score_edges_device", "run_walks", "consensus"} <= \
+        set(runs["stage_median_s"])
+    assert probe.device_profile(LAMBDA, "cpu")["measured"] is False
+    (row,) = probe.scoring_cutover("cpu", sizes=(1000,), repeats=1)
+    assert row["edges"] == 1000 and row["host_ms"] > 0 and row["device_round_trip_ms"] > 0
+
+
+def test_cuda_device_is_required_not_emulated(tmp_path):
+    """--device cuda without a card is an error, never a silent CPU run; CPU
+    tensors never reach a kernel."""
+    from telomeri_tpu_torch.kernels import walk_scan
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_pipeline(*[os.path.join(LAMBDA, f) for f in INPUTS], None, _lambda_cfg(),
+                     device="cuda")
+    wide = torch.zeros((8, 6 * 64), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        walk_scan.walk_scan_cuda(wide, torch.zeros(4, dtype=torch.int32),
+                                 torch.zeros((3, 4), dtype=torch.int32), 3)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions():
+    """Runs on a card without jax too:
+    python -m pytest tests/test_torch_pipeline.py -m gpu --noconftest"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from telomeri_tpu_torch.kernels import scoring, walk_scan
+    from telomeri_tpu_torch.walk.engine import pack_wide, stable_bits_table
+
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    geom = [torch.from_numpy(rng.integers(-3000, 2**31 - 1, 100_003).astype(np.int32)).to(dev)
+            for _ in range(8)]
+    for outputs in (4, 2):
+        want = scoring.score_overlaps_torch(*geom, outputs=outputs)
+        got = scoring.score_overlaps_cuda(*geom, outputs=outputs)
+        for a, b in zip(want, got):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # a random packed table: rows of 0..K edges, some dead (all-zero weights)
+    n, k, h = 800, 48, 64
+    deg = rng.integers(0, k + 1, n)
+    slot = np.arange(k)[None, :] < deg[:, None]
+    nbr = np.where(slot, rng.integers(0, n, (n, k)), -1)
+    es = np.where(slot & (rng.random((n, k)) < 0.9), rng.uniform(0.5, 50, (n, k)), 0)
+    cum = np.cumsum(np.ceil(es), axis=1).astype(np.int32)
+    wide = torch.from_numpy(pack_wide(nbr, cum, np.where(slot, 7, -1), np.where(slot, 3, 0),
+                                      es, es, h)).to(dev)
+    start = torch.from_numpy(rng.integers(0, n, 5000).astype(np.int32)).to(dev)
+    bits = stable_bits_table(9, torch.arange(5000, dtype=torch.int32, device=dev), 24)
+    want = walk_scan.walk_scan_torch(wide, start, bits, 24)
+    got = walk_scan.walk_scan_cuda(wide, start, bits, 24)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
