@@ -2,7 +2,7 @@
 """Smoke run of telomeri_tpu_torch on one CUDA GPU (the quickest proof that the
 port still builds, agrees with itself and scaffolds on the card).
 
-    python3 chip_smoke.py            # all phases, from the root of a checkout
+    python3 chip_smoke.py    # from the root of a checkout; takes no arguments
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   0 device   needs torch.cuda; prints nvidia-smi's name and power limit
@@ -20,6 +20,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              preset, validated against its genome (1 scaffold, n_placed == 1,
              mean identity > 0.98); launch counts are zeroed just before and read
              just after this run
+  6 mesh     the CLI under `python -m torch.distributed.run --nproc-per-node 1
+             ... scaffold --mesh 1` on the same E. coli data, each FASTA
+             byte-identical to phase 5's: replicated; (a) replicated with
+             --save-graph, --save-walks and --trace (the trace must name the
+             walk-scan kernel: the launch counts of a torchrun child are out of
+             sight); (b) the
+             row-sharded placement (NCCL all_gather / reduce_scatter every walk
+             step), (c) resumed from (a)'s artifacts without the PAF files; the
+             walk stage's seconds of each run on its own line. Then lambda and
+             E. coli through the library on a mesh of 1 (NCCL, this process) in
+             both placements, byte-identical to golden_scaffolds.fa and phase 5,
+             the walk-scan kernel launched on the replicated mesh path and not
+             on the row-sharded one; and the per-step cost of the row-sharded fetch
+             against a local row gather on the E. coli MC section. With two
+             (four) or more cards, both placements again at --nproc-per-node 2
+             (and 4), byte-identical too.
 Then the kernels' summary line, and last {"ok": true, "device": {...}}.
 """
 
@@ -28,6 +44,8 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -346,7 +364,140 @@ def phase_ecoli(ecoli_dir: str) -> dict:
     return counts
 
 
-def main() -> int:
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _torchrun_scaffold(nproc: int, args: list[str], out: str, timeout: int = 600) -> dict:
+    """`scaffold` under torchrun with nproc processes (its own process group,
+    killed whole on a timeout); returns out's metrics.json."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+           "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+           "-m", "telomeri_tpu_torch.cli.main", "scaffold", *args, "--out", out]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=ROOT, env=env, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    require(proc.returncode == 0, f"torchrun {' '.join(args)} exited {proc.returncode}:\n"
+                                  f"{err[-4000:]}")
+    with open(out + ".metrics.json") as f:
+        return json.load(f)
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _mesh_library_runs(mesh, tmp: str, ecoli_dir: str) -> None:
+    """run_pipeline on `mesh` (this process, warm) in both placements: lambda
+    against golden_scaffolds.fa, then E. coli against phase 5's FASTA."""
+    from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from telomeri_tpu_torch.pipeline import ScaffoldConfig, run_pipeline
+
+    with open(os.path.join(LAMBDA, "config.json")) as f:
+        lam = json.load(f)
+    for name, data, cfg, want in (
+            ("lambda", LAMBDA, lam, os.path.join(LAMBDA, "golden_scaffolds.fa")),
+            ("ecoli", ecoli_dir, {}, os.path.join(ecoli_dir, "scaffolds.fa"))):
+        for placement in ("replicated", "rowshard"):
+            c = ScaffoldConfig(**{**cfg, "device_scoring": "on", "graph_placement": placement})
+            out = os.path.join(tmp, f"{name}_mesh_{placement}.fa")
+            reset_launch_counts()
+            res = run_pipeline(*[os.path.join(data, f) for f in INPUTS], out, c, mesh=mesh)
+            counts = launch_counts()
+            require(_read(out) == _read(want),
+                    f"{name} on a mesh of 1 ({placement}) differs from {want}")
+            # the row-sharded MC section runs the plain scan (dist/rowshard.py)
+            require((counts["walk_scan"] > 0) == (placement == "replicated"),
+                    f"{name} mesh {placement}: walk_scan launched {counts['walk_scan']} times")
+            require(counts["score_os_es2"] > 0, f"{name} mesh {placement}: no rescore launch")
+            emit("mesh_library", data=name, placement=placement, fasta_identical=True,
+                 launches=counts, walk_stage_s=res.metrics.as_dict()["timings_s"]["run_walks"])
+
+
+def _rowshard_fetch_cost(mesh, graph, plan) -> None:
+    """One row-sharded walk step's fetch (all_gather + masked gather +
+    reduce_scatter) against the replicated local gather, at the E. coli MC
+    section's batch."""
+    import torch
+
+    from telomeri_tpu_torch.dist.rowshard import _collective_fetch, shard_graph_rows
+    from telomeri_tpu_torch.walk import engine
+
+    lo, hi = plan.sections["mc"]
+    cur = torch.from_numpy(plan.start[lo:hi]).to(mesh.device)
+    wide = engine.graph_to_device(graph, mesh.device).wide
+    fetch = _collective_fetch(shard_graph_rows(graph, mesh).wide, mesh)
+    require(torch.equal(fetch(cur), wide[cur.long()]), "row-sharded fetch != local gather")
+    ms, local_ms = paired_ms(lambda: fetch(cur), lambda: wide[cur.long()], 20)
+    emit("rowshard_fetch", walks=hi - lo, row_bytes=int(wide.shape[1]) * 4, world=mesh.size,
+         ms_per_step=ms, local_gather_ms_per_step=local_ms)
+
+
+def phase_mesh(ecoli_dir: str, tmp: str) -> None:
+    import torch
+
+    from telomeri_tpu_torch.dist.mesh import init_distributed, make_walk_mesh, shutdown_distributed
+    from telomeri_tpu_torch.pipeline import ScaffoldConfig
+
+    want = _read(os.path.join(ecoli_dir, "scaffolds.fa"))   # phase 5's FASTA
+    seqs = ["--contigs", os.path.join(ecoli_dir, INPUTS[0]),
+            "--reads", os.path.join(ecoli_dir, INPUTS[1])]
+    paf = ["--paf-read-contig", os.path.join(ecoli_dir, INPUTS[2]),
+           "--paf-read-read", os.path.join(ecoli_dir, INPUTS[3])]
+    base = ["--device", DEVICE, "--device-scoring", "on"]
+    graph_a, walks_a = os.path.join(tmp, "mesh_graph.npz"), os.path.join(tmp, "mesh_walks.npz")
+
+    def run(tag: str, nproc: int, placement: str, args: list[str]) -> None:
+        out = os.path.join(tmp, f"mesh_{tag}.fa")
+        t0 = time.perf_counter()
+        m = _torchrun_scaffold(nproc, base + seqs + args + [
+            "--mesh", str(nproc), "--graph-placement", placement], out)
+        wall = time.perf_counter() - t0
+        require(_read(out) == want, f"mesh run {tag}: FASTA differs from phase 5's")
+        stage = "load_walks_artifact" if "--walks" in args else "run_walks"
+        emit("mesh_run", run=tag, nproc=nproc, placement=placement, fasta_identical=True,
+             walk_stage_s=m["timings_s"][stage], walk_stage=stage,
+             torchrun_wall_s=round(wall, 3), n_walks=m["metrics"]["n_walks"],
+             device=m["metrics"]["device"])
+
+    run("replicated", 1, "replicated", paf)
+    trace = os.path.join(tmp, "mesh_trace")
+    run("a_replicated_traced", 1, "replicated",
+        paf + ["--save-graph", graph_a, "--save-walks", walks_a, "--trace", trace])
+    files = os.listdir(trace) if os.path.isdir(trace) else []
+    require(len(files) == 1, f"--trace wrote {files}")
+    text = _read(os.path.join(trace, files[0])).decode()
+    require("walk_scan_kernel" in text, "the replicated mesh trace never names walk_scan_kernel")
+    emit("mesh_trace", file=files[0], bytes=len(text), names_walk_scan_kernel=True)
+    run("b_rowshard", 1, "rowshard", paf)
+    run("c_resume", 1, "replicated", ["--graph", graph_a, "--walks", walks_a])
+
+    _, graph, plan = _build(ecoli_dir, ScaffoldConfig(device_scoring="on"))
+    init_distributed(DEVICE)   # a world of 1 in this process
+    try:
+        mesh = make_walk_mesh(1, DEVICE)
+        _mesh_library_runs(mesh, tmp, ecoli_dir)
+        _rowshard_fetch_cost(mesh, graph, plan)
+    finally:
+        shutdown_distributed()
+    n_dev = torch.cuda.device_count()
+    worlds = [n for n in (2, 4) if n <= n_dev]
+    for n in worlds:
+        run(f"replicated_x{n}", n, "replicated", paf)
+        run(f"rowshard_x{n}", n, "rowshard", paf)
+    emit("mesh", ok=True, devices=n_dev, multi_device_worlds=worlds)
+
+
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -354,6 +505,9 @@ def main() -> int:
         return 1
     import telomeri_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if argv:
+        print(f"chip_smoke: takes no arguments, got {argv}", file=sys.stderr)
+        return 2
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -366,6 +520,7 @@ def main() -> int:
         phase_walks(ecoli_dir, results)
         phase_lambda(work)
         counts = phase_ecoli(ecoli_dir)
+        phase_mesh(ecoli_dir, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -384,4 +539,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,15 +2,20 @@
 
   telomeri-tpu-torch scaffold --contigs c.fa --reads r.fa --paf-read-contig rc.paf \
       --paf-read-read rr.paf --out scaffolds.fa [--device cuda|cpu] [--config cfg.json] \
+      [--graph G | --save-graph G] [--walks W | --save-walks W] [--trace DIR] \
       [ScaffoldConfig flags]
+  torchrun --nproc-per-node N -m telomeri_tpu_torch.cli.main scaffold --mesh N ...
   telomeri-tpu-torch simulate|validate|stats ...     (host-only, as telomeri-tpu)
 
 `scaffold` takes the reference CLI's flags (every ScaffoldConfig field is one)
 plus --device: "cuda" (the default) runs the device stages and the
 hand-written kernels on the GPU and fails when there is none; "cpu" runs their
-plain torch versions. As in the reference, the resolved config and the stage
-metrics are written next to the FASTA (<out>.config.json, <out>.metrics.json).
-The host-only subcommands are the reference's own, which never import jax.
+plain torch versions. --mesh N shards the walks over N devices, one process
+each, so it runs under torchrun with N processes (NCCL for cuda, gloo for cpu);
+--mesh 1 also runs as one plain process. As in the reference, the resolved
+config and the stage metrics are written next to the FASTA (<out>.config.json,
+<out>.metrics.json), once per host. The host-only subcommands are the
+reference's own, which never import jax.
 
 The flags and their parsing come from two private helpers of the reference CLI,
 `telomeri_tpu.cli.main._add_config_flags` and `_config_from_args`: a change to
@@ -39,20 +44,24 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--contigs", required=True, help="draft contigs FASTA")
     s.add_argument("--reads", required=True, help="long reads FASTA/FASTQ")
     s.add_argument("--paf-read-contig", nargs="+",
-                   help="minimap2 PAF: reads vs contigs (one or more files)")
+                   help="minimap2 PAF: reads vs contigs, one or more files "
+                        "(omit when resuming --graph)")
     s.add_argument("--paf-read-read", nargs="+",
-                   help="minimap2 PAF: reads vs reads (one or more files)")
+                   help="minimap2 PAF: reads vs reads, one or more files "
+                        "(omit when resuming --graph)")
     s.add_argument("--out", required=True, help="output scaffolds FASTA")
     s.add_argument("--config", help="ScaffoldConfig JSON (flags override it)")
     s.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the device stages run (default cuda)")
-    s.add_argument("--graph", help="resume from a graph artifact (not ported yet)")
-    s.add_argument("--save-graph", help="save a graph artifact (not ported yet)")
-    s.add_argument("--walks", help="resume from a walks artifact (not ported yet)")
-    s.add_argument("--save-walks", help="save a walks artifact (not ported yet)")
+    s.add_argument("--graph", help="resume: load tensorized graph artifact (.npz)")
+    s.add_argument("--save-graph", help="save tensorized graph artifact (.npz)")
+    s.add_argument("--walks", help="resume: load walk-table artifact (.npz)")
+    s.add_argument("--save-walks", help="save walk-table artifact (.npz)")
     s.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="shard walks over N devices (not ported yet; 0 = one device)")
-    s.add_argument("--trace", metavar="DIR", help="profiler trace (not ported yet)")
+                   help="shard walks over N devices, one torchrun process each "
+                        "(0 = single device)")
+    s.add_argument("--trace", metavar="DIR",
+                   help="write a torch.profiler trace of the walk stage to DIR")
     s.add_argument("--agp", metavar="FILE",
                    help="also write scaffold composition as AGP v2.1")
     reference_cli._add_config_flags(s)
@@ -74,27 +83,45 @@ def main(argv: list[str] | None = None) -> int:
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
     setup_logging(args.verbose)
-    if not (args.paf_read_contig and args.paf_read_read):
-        parser.error("--paf-read-contig and --paf-read-read are required")
+    if not args.graph and not (args.paf_read_contig and args.paf_read_read):
+        parser.error("--paf-read-contig and --paf-read-read are required unless "
+                     "resuming from --graph")
 
     import torch
 
+    from telomeri_tpu_torch.dist.mesh import (
+        init_distributed,
+        make_walk_mesh,
+        shutdown_distributed,
+    )
     from telomeri_tpu_torch.pipeline import run_pipeline
 
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: torch sees no CUDA device (use --device cpu)")
     cfg = reference_cli._config_from_args(args)
     metrics = Metrics()
-    res = run_pipeline(args.contigs, args.reads, args.paf_read_contig,
-                       args.paf_read_read, args.out, cfg, metrics,
-                       mesh=args.mesh or None, graph_artifact=args.graph,
-                       save_graph_path=args.save_graph, walks_artifact=args.walks,
-                       save_walks_path=args.save_walks, trace_dir=args.trace,
-                       agp_path=args.agp, device=args.device)
-    with open(args.out + ".config.json", "w") as f:
-        f.write(cfg.to_json())
-    metrics.dump(args.out + ".metrics.json")
-    log.info("wrote %d scaffolds to %s", len(res.scaffolds), args.out)
+    mesh = None
+    if args.mesh:
+        init_distributed(args.device)
+        try:
+            mesh = make_walk_mesh(args.mesh, args.device)
+        except ValueError as e:
+            shutdown_distributed()
+            parser.error(str(e))
+    try:
+        res = run_pipeline(args.contigs, args.reads, args.paf_read_contig,
+                           args.paf_read_read, args.out, cfg, metrics, mesh=mesh,
+                           graph_artifact=args.graph, save_graph_path=args.save_graph,
+                           walks_artifact=args.walks, save_walks_path=args.save_walks,
+                           trace_dir=args.trace, agp_path=args.agp, device=args.device)
+    finally:
+        if mesh is not None:
+            shutdown_distributed()
+    if mesh is None or mesh.local_rank == 0:
+        with open(args.out + ".config.json", "w") as f:
+            f.write(cfg.to_json())
+        metrics.dump(args.out + ".metrics.json")
+        log.info("wrote %d scaffolds to %s", len(res.scaffolds), args.out)
     return 0
 
 

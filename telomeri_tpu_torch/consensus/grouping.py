@@ -227,6 +227,19 @@ def group_and_select(
         distinct=seg_distinct, win_distinct=win_distinct)
 
 
+def walk_consensus(res, uid: torch.Tensor, cfg, *, virtual_base: int | None,
+                   support: str, gather=None) -> ConsensusResult:
+    """summarize, then group_and_select under cfg's (a ScaffoldConfig) grouping
+    rules with the given support; host numpy. gather, where given, maps this
+    process's summary to the whole plan's (dist/mesh.py gather_summary)."""
+    summary = summarize(res, uid, virtual_base=virtual_base)
+    if gather is not None:
+        summary = gather(summary)
+    return group_and_select(
+        summary, group_window=cfg.group_window, min_support=cfg.min_group_support,
+        grouping=cfg.grouping, support=support).to_numpy()
+
+
 def compress(c: ConsensusResult) -> list[dict]:
     """Host-side: valid rows of a ConsensusResult as a sorted list of bridge dicts."""
     if isinstance(c.valid, torch.Tensor):

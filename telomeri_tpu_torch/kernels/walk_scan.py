@@ -51,17 +51,23 @@ def _check(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
 
 
 def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
-                    max_steps: int) -> torch.Tensor:
+                    max_steps: int, fetch=None) -> torch.Tensor:
     """Plain torch version on any device. bits: (S, W) int32 holding the uint32
-    draw bit patterns (walk/engine.py stable_bits_table)."""
+    draw bit patterns (walk/engine.py stable_bits_table).
+
+    fetch(cur) -> (W, 6H) rows of the walks' current nodes; the default is the
+    local gather wide[cur]. dist/rowshard.py passes a collective fetch, with
+    `wide` then this rank's shard of the table."""
     h, w = _check(wide, start, bits, max_steps)
+    if fetch is None:
+        fetch = lambda cur: wide[cur.long()]
     out = torch.empty((5, w, max_steps), dtype=torch.int32, device=wide.device)
     # column of the chosen slot in each picked block: nbr, eid, adv, es_bits
     blocks = torch.tensor([0, 2 * h, 3 * h, 4 * h], dtype=torch.int64,
                           device=wide.device)
     cur = start.clone()
     for s in range(max_steps):
-        rows = wide[cur.long()]                       # (W, 6H) one row gather
+        rows = fetch(cur)                             # (W, 6H) one row fetch
         cum = rows[:, h:2 * h]
         total = cum[:, -1]
         r = torch.remainder(bits[s] & 0x7FFFFFFF, torch.clamp_min(total, 1))

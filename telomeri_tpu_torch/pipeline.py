@@ -1,19 +1,23 @@
-"""End-to-end scaffolding pipeline on one device: the port of telomeri_tpu/pipeline.py.
+"""End-to-end scaffolding pipeline: the port of telomeri_tpu/pipeline.py.
 
 host ingest -> build_edges -> [device] optional rescoring -> tensorize ->
 plan_walks -> [device] walks -> [device] consensus -> [host] cut-read gate and
-coherence -> conflict resolution -> [device] one rescue round -> stitching ->
-FASTA. The stages and their metrics are the reference's; the device work runs
-in torch on `device` ("cuda" launches the hand-written kernels, "cpu" runs
-their plain versions). Host stages receive host numpy arrays.
+coherence -> conflict resolution -> [device] rescue rounds -> stitching ->
+FASTA. The stages, their metrics and the artifacts that resume a run at a stage
+boundary (--graph / --walks) are the reference's; the device work runs in torch
+on `device` ("cuda" launches the hand-written kernels, "cpu" runs their plain
+versions). Host stages receive host numpy arrays.
 
-Not ported yet (ROADMAP.md, queue 1): a device mesh and the row-sharded graph
-placement, graph and walks artifacts, and profiler traces; asking for any of
-them raises NotImplementedError.
+With a mesh (dist/mesh.py: one process per device under torchrun) the walks
+and the rescue rounds shard over the ranks, with the graph replicated or, for a
+table beyond ~75% of one device's memory, row-sharded (_resolve_placement); the
+scaffolds are the same as on one device. Each host writes its output files
+once, from local rank 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
@@ -21,7 +25,6 @@ import numpy as np
 import torch
 
 from telomeri_tpu.config import ScaffoldConfig  # re-exported: callers of the port take it from here
-from telomeri_tpu.consensus.evidence import read_diversity_gate
 from telomeri_tpu.graph.tensorize import GraphTensors
 from telomeri_tpu.io.fasta import SequenceSet, read_fasta, write_fasta
 from telomeri_tpu.io.geometry import EdgeSoA, split_evidence_mask, split_mapped
@@ -30,9 +33,20 @@ from telomeri_tpu.scaffold.bridge import resolve_with_blockers
 from telomeri_tpu.scaffold.stitch import Scaffold, Stitcher, emit_scaffolds, extract_path
 from telomeri_tpu.utils.logging import Metrics, log
 from telomeri_tpu.walk.plan import WalkPlan, plan_walks
-from telomeri_tpu_torch.consensus.grouping import compress, group_and_select, summarize
+from telomeri_tpu_torch.consensus.evidence import read_diversity_gate
+from telomeri_tpu_torch.consensus.grouping import compress, walk_consensus
+from telomeri_tpu_torch.dist.mesh import (
+    ShardedWalks,
+    WalkMesh,
+    count_walks,
+    fetch_walk_rows,
+    run_walks_distributed,
+)
 from telomeri_tpu_torch.graph.tensorize import tensorize
+from telomeri_tpu_torch.io.artifacts import load_graph, load_walks, save_graph, save_walks
 from telomeri_tpu_torch.io.geometry import build_edges, rescore_edges_device
+from telomeri_tpu_torch.utils.profiling import maybe_trace
+from telomeri_tpu_torch.walk import engine
 from telomeri_tpu_torch.walk.engine import WalkResult, graph_to_device, run_walks_host
 from telomeri_tpu_torch.walk.rescue import free_walkable_ends, run_rescue_round
 
@@ -49,7 +63,7 @@ class PipelineResult:
     graph: GraphTensors
     edges: EdgeSoA
     plan: WalkPlan
-    walks: WalkResult        # host numpy records
+    walks: WalkResult | ShardedWalks   # host numpy, or left on the mesh's ranks
     bridges: list[dict]
     accepted: list
     metrics: Metrics
@@ -114,10 +128,42 @@ def build_graph(contigs: SequenceSet, reads: SequenceSet, paf: PafRecords,
     return edges, graph
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to telomeri_tpu_torch yet (ROADMAP.md, queue 1); "
-        f"use telomeri_tpu for it")
+def _device_memory_limit(device: torch.device) -> int | None:
+    """Bytes of memory on `device`, or None where torch knows no limit (CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[1]
+    return None
+
+
+def _resolve_placement(cfg: ScaffoldConfig, graph: GraphTensors, mesh: WalkMesh | None,
+                       metrics: Metrics) -> ScaffoldConfig:
+    """graph_placement="auto": replicated unless the packed walk table exceeds
+    ~75% of one device's memory (16 GiB where torch knows no limit) and the
+    mesh has more than one device; then row-sharded (dist/rowshard.py).
+    Returns the cfg to run walks with."""
+    if cfg.graph_placement != "auto":
+        return cfg
+    placement = "replicated"
+    if mesh is not None and mesh.size > 1:
+        need = engine.device_table_bytes(graph)
+        limit = _device_memory_limit(mesh.device)
+        budget = 0.75 * (limit if limit else 16 * 2**30)
+        if need > budget:
+            placement = "rowshard"
+            log.info(
+                "graph tables %.1f GiB exceed 75%% of device memory "
+                "(%.1f GiB budget): row-sharding over the %d-device mesh",
+                need / 2**30, budget / 2**30, mesh.size)
+    metrics.set("graph_placement", placement)
+    return dataclasses.replace(cfg, graph_placement=placement)
+
+
+def _consensus(walks: WalkResult, plan: WalkPlan, graph: GraphTensors,
+               cfg: ScaffoldConfig, device):
+    """Consensus of records on `device` (or host records, uploaded there)."""
+    walks = WalkResult(*[torch.as_tensor(a) for a in walks]).to(device)
+    return walk_consensus(walks, torch.from_numpy(plan.uid), cfg,
+                          virtual_base=graph.virtual_base, support=cfg.support_mode)
 
 
 def run_pipeline(
@@ -128,7 +174,7 @@ def run_pipeline(
     out_path: str | None,
     cfg: ScaffoldConfig = ScaffoldConfig(),
     metrics: Metrics | None = None,
-    mesh=None,
+    mesh: WalkMesh | None = None,
     graph_artifact: str | None = None,
     save_graph_path: str | None = None,
     walks_artifact: str | None = None,
@@ -138,18 +184,19 @@ def run_pipeline(
     *,
     device="cuda",
 ) -> PipelineResult:
-    """Full single-device pipeline on `device` (the reference's arguments; the
-    mesh, artifact and trace ones are not ported yet and raise)."""
-    if mesh is not None or cfg.graph_placement == "rowshard":
-        _not_ported("a device mesh / row-sharded graph placement")
-    if graph_artifact or save_graph_path or walks_artifact or save_walks_path:
-        _not_ported("graph and walks artifacts")
-    if trace_dir or os.environ.get("TELOMERI_TRACE"):
-        _not_ported("profiler tracing")
-    device = torch.device(device)
+    """Full pipeline (the reference's arguments, plus `device`). Pass a
+    WalkMesh (dist/mesh.py) to shard the walks over its ranks; its device then
+    takes the place of `device`. graph / walks artifacts resume the pipeline
+    from a stage boundary; trace_dir (or $TELOMERI_TRACE) writes a profiler
+    trace of the walk stage."""
+    metrics = metrics or Metrics()
+    if cfg.graph_placement == "rowshard" and mesh is None:
+        raise ValueError("graph_placement='rowshard' shards CSR rows over a "
+                         "device mesh; pass --mesh N")
+    device = mesh.device if mesh is not None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA device")
-    metrics = metrics or Metrics()
+    writes = mesh is None or mesh.local_rank == 0   # once per host
     metrics.set("device", str(device))
     if cfg.support_mode == "walk_count" and cfg.mc_walks_per_end > 200:
         log.warning(
@@ -157,33 +204,77 @@ def run_pipeline(
             "density-inflated (a chimeric junction gains count as fast as a "
             "real one) — use support_mode='read_diverse' at this density",
             cfg.mc_walks_per_end)
-    contigs, reads, paf = load_inputs(
-        contigs_path, reads_path, paf_rc_path, paf_rr_path, metrics,
-        lazy=cfg.lazy_sequences)
-    edges, graph = build_graph(contigs, reads, paf, cfg, metrics, device=device)
+    if graph_artifact:
+        with metrics.stage("load_sequences"):
+            contigs = read_fasta(contigs_path, lazy=cfg.lazy_sequences)
+            reads = read_fasta(reads_path, lazy=cfg.lazy_sequences)
+        with metrics.stage("load_graph_artifact"):
+            edges, graph = load_graph(graph_artifact, cfg)
+        metrics.set("graph", graph.stats)
+        if graph.split_read is not None:
+            metrics.set("n_split_reads", int(graph.split_read.sum()))
+    else:
+        contigs, reads, paf = load_inputs(
+            contigs_path, reads_path, paf_rc_path, paf_rr_path, metrics,
+            lazy=cfg.lazy_sequences)
+        edges, graph = build_graph(contigs, reads, paf, cfg, metrics, device=device)
+        if save_graph_path and writes:
+            with metrics.stage("save_graph_artifact"):
+                save_graph(save_graph_path, edges, graph, cfg)
 
-    with metrics.stage("plan_walks"):
-        plan = plan_walks(graph, cfg)
-    metrics.set("n_walks", plan.n_active)
-    with metrics.stage("run_walks"):
-        walks_dev = run_walks_host(graph, plan, cfg, device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)   # the stage time must see real work
-    with metrics.stage("consensus"):
-        summary = summarize(walks_dev, torch.from_numpy(plan.uid),
-                            virtual_base=graph.virtual_base)
-        cons = group_and_select(
-            summary, n_anchors=graph.n_anchors, group_window=cfg.group_window,
-            min_support=cfg.min_group_support, grouping=cfg.grouping,
-            support=cfg.support_mode).to_numpy()
-        bridges = compress(cons)
-        walks = walks_dev.to_numpy()
-    del walks_dev, summary
+    resolved_placement = cfg.graph_placement
+    if walks_artifact:
+        # resume must equal the direct run: the rescue stage needs the placement
+        # the direct run's walk stage would have resolved
+        if mesh is not None:
+            resolved_placement = _resolve_placement(
+                cfg, graph, mesh, metrics).graph_placement
+        with metrics.stage("load_walks_artifact"):
+            plan, walks = load_walks(walks_artifact, cfg)
+        metrics.set("n_walks", plan.n_active)
+        with metrics.stage("consensus"):
+            cons = _consensus(walks, plan, graph, cfg, device)
+            bridges = compress(cons)
+    else:
+        with metrics.stage("plan_walks"):
+            plan = plan_walks(graph, cfg, n_shards=mesh.size if mesh is not None else 1)
+        metrics.set("n_walks", plan.n_active)
+        if mesh is not None:
+            walk_cfg = _resolve_placement(cfg, graph, mesh, metrics)
+            resolved_placement = walk_cfg.graph_placement
+            with metrics.stage("run_walks"), maybe_trace(trace_dir):
+                # the records stay on their ranks; the gate and the stitcher
+                # fetch the rows they read (fetch_walk_rows)
+                walks, cons = run_walks_distributed(graph, plan, walk_cfg, mesh)
+            with metrics.stage("consensus"):
+                bridges = compress(cons)
+        else:
+            with metrics.stage("run_walks"), maybe_trace(trace_dir):
+                walks_dev = run_walks_host(graph, plan, cfg, device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)   # the stage time must see real work
+            with metrics.stage("consensus"):
+                cons = _consensus(walks_dev, plan, graph, cfg, device)
+                bridges = compress(cons)
+                walks = walks_dev.to_numpy()
+            del walks_dev
+        if save_walks_path:
+            if mesh is not None and mesh.size > 1:
+                log.warning("--save-walks skipped: records are sharded across "
+                            "processes; rerun single-process to save them")
+            elif writes:
+                with metrics.stage("save_walks_artifact"):
+                    host = (fetch_walk_rows(walks, np.arange(len(plan)), mesh)
+                            if isinstance(walks, ShardedWalks) else walks)
+                    save_walks(save_walks_path, plan, host, cfg)
 
-    n_succ = int(walks.success.sum())
+    if isinstance(walks, ShardedWalks):
+        n_succ, n_trunc = count_walks(walks, cfg.max_steps, mesh)
+    else:
+        n_succ = int(walks.success.sum())
+        # truncated = ran to the step bound without reaching an anchor
+        n_trunc = int(((walks.steps >= cfg.max_steps) & ~walks.success).sum())
     metrics.set("n_walks_successful", n_succ)
-    # truncated = ran to the step bound without reaching an anchor
-    n_trunc = int(((walks.steps >= cfg.max_steps) & ~walks.success).sum())
     metrics.set("n_walks_truncated", n_trunc)
     log.info("walks: %d planned, %d successful, %d truncated at max_steps=%d",
              plan.n_active, n_succ, n_trunc, cfg.max_steps)
@@ -199,7 +290,8 @@ def run_pipeline(
     if cfg.support_mode == "read_diverse":
         with metrics.stage("cut_read_gate"):
             bridges, blocked_rows = read_diversity_gate(
-                bridges, cons, walks, graph.virtual_base, split_read=graph.split_read)
+                bridges, cons, walks, graph.virtual_base, mesh=mesh,
+                split_read=graph.split_read)
         metrics.set("n_bridges_cut_refused", len(blocked_rows))
         metrics.set("n_bridges_cut_clean",
                     sum(1 for r in bridges if "cut_reads" in r))
@@ -208,12 +300,12 @@ def run_pipeline(
                      "single-point evidence (their winning ends stay blocked)",
                      len(blocked_rows))
         if cfg.copy_coherence_margin > 0:
-            from telomeri_tpu.consensus.coherence import annotate_pair_coherence
+            from telomeri_tpu_torch.consensus.coherence import annotate_pair_coherence
 
             with metrics.stage("coherence"):
                 n_inc = annotate_pair_coherence(
                     bridges, cons, walks, edges, graph.virtual_base,
-                    cfg.copy_coherence_margin)
+                    cfg.copy_coherence_margin, mesh=mesh)
             metrics.set("n_pairs_incoherent", n_inc)
             if n_inc:
                 log.info("coherence: %d of %d candidate pair(s) have no "
@@ -226,19 +318,21 @@ def run_pipeline(
     metrics.set("n_ends_blocked", len(blocked_ends))
     log.info("bridges: %d candidates, %d accepted", len(bridges), len(accepted))
 
-    # rescue rounds: dense MC re-walks of still-free walkable ends
+    # rescue rounds: dense MC re-walks of still-free walkable ends (also on a
+    # --walks resume: resume must equal the direct run)
     rescue_paths: dict = {}
     if cfg.rescue_rounds > 0:
-        rescue_gd = None   # device tables, uploaded once
+        rescue_gd = None   # replicated device tables, uploaded once
         for ri in range(cfg.rescue_rounds):
             if not free_walkable_ends(graph, accepted, blocked_ends):
                 break
-            if rescue_gd is None:
+            if rescue_gd is None and resolved_placement != "rowshard":
                 rescue_gd = graph_to_device(graph, device)
             with metrics.stage(f"rescue_round_{ri}"):
                 new, paths_ri, blocked_ends = run_rescue_round(
                     graph, cfg, accepted, ri, gd=rescue_gd,
-                    blocked_ends=blocked_ends, device=device)
+                    blocked_ends=blocked_ends, device=device, mesh=mesh,
+                    placement=resolved_placement)
             if not new:
                 break
             accepted = accepted + new
@@ -250,10 +344,16 @@ def run_pipeline(
     with metrics.stage("stitch"):
         lut = plan.uid_to_row()
         rep_uids = [b.rep_uid for b in accepted if b.rep_uid not in rescue_paths]
+        rows = np.array([lut[u] for u in rep_uids], np.int64)
+        if isinstance(walks, ShardedWalks):   # only the representative rows
+            rep = fetch_walk_rows(walks, rows, mesh)
+            rows = np.arange(len(rep_uids))
+        else:
+            rep = walks
         paths = {
-            u: extract_path(walks.nodes[lut[u]], walks.eids[lut[u]],
-                            int(walks.steps[lut[u]]), virtual_base=graph.virtual_base)
-            for u in rep_uids
+            u: extract_path(rep.nodes[i], rep.eids[i], int(rep.steps[i]),
+                            virtual_base=graph.virtual_base)
+            for u, i in zip(rep_uids, rows)
         }
         paths.update(rescue_paths)
         stitcher = Stitcher(contigs, reads, edges)
@@ -282,10 +382,10 @@ def run_pipeline(
     metrics.set("assembly", scaffold_vs_contig_stats(
         [len(s.seq) for s in scaffolds], list(contigs.lengths)))
 
-    if out_path:
+    if out_path and writes:
         with metrics.stage("write_fasta"):
             write_fasta(out_path, [s.name for s in scaffolds], [s.seq for s in scaffolds])
-    if agp_path:
+    if agp_path and writes:
         from telomeri_tpu.scaffold.stitch import write_agp
 
         with metrics.stage("write_agp"):

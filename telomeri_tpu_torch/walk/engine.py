@@ -73,8 +73,9 @@ class WalkResult(NamedTuple):
     score_sum: torch.Tensor  # (W,) float32 sum of edge ES
 
     def to_numpy(self) -> "WalkResult":
-        """The same records as host numpy arrays."""
-        return WalkResult(*[a.cpu().numpy() for a in self])
+        """The same records as host numpy arrays (host records pass through)."""
+        return WalkResult(*[a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                            for a in self])
 
     def to(self, device) -> "WalkResult":
         return WalkResult(*[torch.as_tensor(a).to(device) for a in self])
@@ -270,12 +271,15 @@ def _pick(a: torch.Tensor, choice: torch.Tensor) -> torch.Tensor:
 
 
 def _kind_core(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int, max_steps: int,
-               kind: str) -> WalkResult:
+               kind: str, fetch=None) -> WalkResult:
     """Mixed / greedy scan with the in-scan visited table (the reference's
-    _kind_core), as a Python loop over steps."""
+    _kind_core), as a Python loop over steps. fetch(cur) -> (W, 6H) rows, as in
+    kernels/walk_scan.py walk_scan_torch; the default is the local gather."""
     if kind not in ("mixed", "greedy"):
         raise ValueError(f"_kind_core runs mixed or greedy sections, got {kind!r}")
     wide, k = gd.wide, gd.h
+    if fetch is None:
+        fetch = lambda cur: wide[cur.long()]
     w = p.start.shape[0]
     dev = wide.device
     anchor_lim = 2 * n_anchors
@@ -295,7 +299,7 @@ def _kind_core(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int, max_steps: int
     took, eid_t, adv_t, es_t = [], [], [], []
 
     for s in range(max_steps):
-        rows = wide[cur.long()]                      # (W, 6H) one row gather
+        rows = fetch(cur)                            # (W, 6H) one row fetch
         nbr_rows = rows[:, :k]
         # greedy candidates exclude pads and already-visited destinations
         revisit = (nbr_rows[:, :, None] == visited[:, None, :]).any(-1)

@@ -1,9 +1,10 @@
-"""Rescue rounds, single device: the port of telomeri_tpu/walk/rescue.py.
+"""Rescue rounds: the port of telomeri_tpu/walk/rescue.py.
 
 After conflict resolution, still-free walkable contig ends are re-walked at
 rescue_walks_per_end MC walks each through the SAME grouping and cut-read gate
 as the base round (read_diverse support); rescue bridges are conflict-resolved
-INTO the accepted set, so a round only adds bridges on free ends.
+INTO the accepted set, so a round only adds bridges on free ends. On one device
+or, given a mesh, sharded over its ranks in either graph placement (dist/).
 
 free_walkable_ends and build_rescue_plan are copies of the reference's: its
 module imports its consensus grouping, which imports jax.
@@ -15,13 +16,19 @@ import numpy as np
 import torch
 
 from telomeri_tpu.config import ScaffoldConfig
-from telomeri_tpu.consensus.evidence import read_diversity_gate
 from telomeri_tpu.graph.tensorize import GraphTensors
 from telomeri_tpu.scaffold.bridge import Bridge, resolve_with_blockers
 from telomeri_tpu.scaffold.stitch import extract_path
 from telomeri_tpu.utils.logging import log
 from telomeri_tpu.walk.plan import MODE_MC, WalkPlan
-from telomeri_tpu_torch.consensus.grouping import compress, group_and_select, summarize
+from telomeri_tpu_torch.consensus.evidence import read_diversity_gate
+from telomeri_tpu_torch.consensus.grouping import compress, walk_consensus
+from telomeri_tpu_torch.dist.mesh import (
+    WalkMesh,
+    fetch_walk_rows,
+    gathered_consensus,
+    run_walk_shards,
+)
 from telomeri_tpu_torch.walk.engine import GraphDev, graph_to_device, run_walks_sectioned
 
 RESCUE_UID_BASE = 1 << 30   # rescue uids never collide with base plan uids
@@ -44,11 +51,12 @@ def free_walkable_ends(graph: GraphTensors, accepted: list[Bridge],
     return out
 
 
-def build_rescue_plan(ends: list[int], cfg: ScaffoldConfig,
-                      round_ix: int = 0) -> tuple[WalkPlan, int]:
+def build_rescue_plan(ends: list[int], cfg: ScaffoldConfig, round_ix: int = 0,
+                      mesh_size: int = 1) -> tuple[WalkPlan, int]:
     """All-MC WalkPlan for one rescue round, the batch capped at
     MAX_RESCUE_WALKS (the end list is truncated when even one walk per end
-    would exceed it). Returns (plan, uid0); uids are uid0 + row."""
+    would exceed it) and padded to divide over mesh_size ranks. Returns
+    (plan, uid0); uids are uid0 + row."""
     if len(ends) > MAX_RESCUE_WALKS:
         log.warning(
             "rescue round %d: %d free ends exceed the %d-walk budget; walking "
@@ -57,7 +65,7 @@ def build_rescue_plan(ends: list[int], cfg: ScaffoldConfig,
         ends = ends[:MAX_RESCUE_WALKS]
     per_end = max(1, min(cfg.rescue_walks_per_end, MAX_RESCUE_WALKS // len(ends)))
     starts = np.repeat(np.array(ends, np.int32), per_end)
-    n_pad = -len(starts) % cfg.walk_batch_multiple
+    n_pad = -len(starts) % (cfg.walk_batch_multiple * max(mesh_size, 1))
     active = np.concatenate([np.ones(len(starts), bool), np.zeros(n_pad, bool)])
     starts = np.concatenate([starts, np.zeros(n_pad, np.int32)])
     w = len(starts)
@@ -75,36 +83,53 @@ def build_rescue_plan(ends: list[int], cfg: ScaffoldConfig,
 def run_rescue_round(
     graph: GraphTensors, cfg: ScaffoldConfig, accepted: list[Bridge],
     round_ix: int = 0, gd: GraphDev | None = None, blocked_ends=frozenset(),
-    *, device,
+    *, device=None, mesh: WalkMesh | None = None, placement: str = "replicated",
 ):
-    """One rescue round on `device`. Returns (new_bridges, paths, blocked_ends'):
-    paths maps each new bridge's rep_uid to its WalkPath for the stitcher;
-    ([], {}, blocked_ends) when nothing qualified."""
+    """One rescue round on `device` or, given a mesh, on its ranks (placement
+    "rowshard" runs the row-sharded walks; gd is the replicated table).
+    Returns (new_bridges, paths, blocked_ends'): paths maps each new bridge's
+    rep_uid to its WalkPath for the stitcher; ([], {}, blocked_ends) when
+    nothing qualified."""
     ends = free_walkable_ends(graph, accepted, blocked_ends)
     if not ends or cfg.rescue_walks_per_end == 0:
         return [], {}, blocked_ends
-    plan, uid0 = build_rescue_plan(ends, cfg, round_ix)
-    if gd is None:
-        gd = graph_to_device(graph, device)
-    res = run_walks_sectioned(gd, plan, cfg.mc_seed, n_anchors=graph.n_anchors,
-                              max_steps=cfg.max_steps)
+    plan, uid0 = build_rescue_plan(ends, cfg, round_ix,
+                                   mesh_size=mesh.size if mesh is not None else 1)
     # the same grouping and evidence rules as the base round, read_diverse always
-    summary = summarize(res, torch.from_numpy(plan.uid),
-                        virtual_base=graph.virtual_base)
-    cons = group_and_select(
-        summary, n_anchors=graph.n_anchors, group_window=cfg.group_window,
-        min_support=cfg.min_group_support, grouping=cfg.grouping,
-        support="read_diverse").to_numpy()
-    res = res.to_numpy()
+    if mesh is not None:
+        if placement == "rowshard":
+            from telomeri_tpu_torch.dist.rowshard import run_walks_rowsharded
+
+            res = run_walks_rowsharded(graph, plan, cfg.mc_seed, max_steps=cfg.max_steps,
+                                       mesh=mesh)
+        else:
+            if gd is None:
+                gd = graph_to_device(graph, mesh.device)
+            res = run_walk_shards(gd, plan, cfg.mc_seed, n_anchors=graph.n_anchors,
+                                  max_steps=cfg.max_steps, mesh=mesh)
+        cons = gathered_consensus(res, plan, mesh, cfg, virtual_base=graph.virtual_base,
+                                  support="read_diverse")
+    else:
+        if gd is None:
+            gd = graph_to_device(graph, device)
+        res = run_walks_sectioned(gd, plan, cfg.mc_seed, n_anchors=graph.n_anchors,
+                                  max_steps=cfg.max_steps)
+        cons = walk_consensus(res, torch.from_numpy(plan.uid), cfg,
+                              virtual_base=graph.virtual_base, support="read_diverse")
+        res = res.to_numpy()
     rows, blocked_rows = read_diversity_gate(
-        compress(cons), cons, res, graph.virtual_base, split_read=graph.split_read)
+        compress(cons), cons, res, graph.virtual_base, mesh=mesh,
+        split_read=graph.split_read)
     new, blocked_ends = resolve_with_blockers(
         rows, blocked_rows, pre_accepted=accepted, pre_blocked=blocked_ends)
     if not new:
         return [], {}, blocked_ends
+    rowids = np.array([b.rep_uid - uid0 for b in new], np.int64)   # uids are row-aligned
+    if mesh is not None:
+        res = fetch_walk_rows(res, rowids, mesh)
+        rowids = np.arange(len(new))
     paths = {}
-    for b in new:
-        i = b.rep_uid - uid0    # rescue uids are row-aligned
+    for b, i in zip(new, rowids):
         paths[b.rep_uid] = extract_path(res.nodes[i], res.eids[i], int(res.steps[i]),
                                         virtual_base=graph.virtual_base)
     return new, paths, blocked_ends

@@ -94,17 +94,37 @@ def test_cli_scaffold_cpu_reproduces_golden(tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A fresh interpreter: import the whole port and run its lambda pipeline."""
+    """A fresh interpreter: import the whole port and run its lambda pipeline on
+    one device, then on a gloo world of 1 in both graph placements, with graph
+    and walks artifacts saved and resumed and a profiler trace."""
     code = f"""
 import sys
 import telomeri_tpu_torch.cli.main, telomeri_tpu_torch.interop, telomeri_tpu_torch.kernels.build
+import telomeri_tpu_torch.consensus.coherence, telomeri_tpu_torch.consensus.evidence
+import telomeri_tpu_torch.dist.mesh, telomeri_tpu_torch.dist.rowshard
+import telomeri_tpu_torch.io.artifacts, telomeri_tpu_torch.utils.profiling
+import telomeri_tpu_torch.walk.oracle, telomeri_tpu_torch.probe
 from telomeri_tpu.config import ScaffoldConfig
+from telomeri_tpu_torch.dist.mesh import init_distributed, make_walk_mesh, shutdown_distributed
 from telomeri_tpu_torch.pipeline import run_pipeline
-import json
-d = {LAMBDA!r}
+import json, os
+d, t = {LAMBDA!r}, {str(tmp_path)!r}
+inputs = [d + "/" + f for f in {INPUTS!r}]
+golden = open(d + "/golden_scaffolds.fa", "rb").read()
 cfg = ScaffoldConfig(**json.load(open(d + "/config.json")), device_scoring="on")
-run_pipeline(*[d + "/" + f for f in {INPUTS!r}], {str(tmp_path / "x.fa")!r}, cfg,
-             device="cpu")
+run_pipeline(*inputs, t + "/x.fa", cfg, device="cpu")
+init_distributed("cpu")
+mesh = make_walk_mesh(1, "cpu")
+for pl in ("replicated", "rowshard"):
+    c = ScaffoldConfig(**{{**cfg.__dict__, "graph_placement": pl}})
+    run_pipeline(*inputs, t + "/" + pl + ".fa", c, mesh=mesh, save_graph_path=t + "/g.npz",
+                 save_walks_path=t + "/w.npz", trace_dir=t + "/trace_" + pl)
+    run_pipeline(inputs[0], inputs[1], None, None, t + "/resumed.fa", c, mesh=mesh,
+                 graph_artifact=t + "/g.npz", walks_artifact=t + "/w.npz")
+    for f in (pl + ".fa", "resumed.fa"):
+        assert open(t + "/" + f, "rb").read() == golden, (pl, f)
+    assert os.listdir(t + "/trace_" + pl), pl
+shutdown_distributed()
 print("JAX_LOADED" if "jax" in sys.modules else "JAX_ABSENT")
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
