@@ -18,8 +18,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              byte-identical to golden_scaffolds.fa, both path kernels launched
   5 ecoli    the CLI `scaffold --device cuda --device-scoring on` on the E. coli
              preset, validated against its genome (1 scaffold, n_placed == 1,
-             mean identity > 0.98); launch counts are zeroed just before and read
-             just after this run
+             mean identity > 0.98; metrics.json has the dispatch records); launch
+             counts are zeroed just before and read just after this run
   6 mesh     the CLI under `python -m torch.distributed.run --nproc-per-node 1
              ... scaffold --mesh 1` on the same E. coli data, each FASTA
              byte-identical to phase 5's: replicated; (a) replicated with
@@ -36,6 +36,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              against a local row gather on the E. coli MC section. With two
              (four) or more cards, both placements again at --nproc-per-node 2
              (and 4), byte-identical too.
+  7 scenarios  tests/test_scale.py's tandem array at 48 and 96 steps (score_sum
+             in XLA's windowed order) and its under-sampled gap with the rescue
+             round off and on (polish on), each through run_pipeline on the card
+             and on the CPU in this process: byte-identical FASTA, equal walk
+             records (score_sum by its bits), representatives and counters; the
+             reference test's pairs; the walk-scan kernel launched in the 48-
+             and 96-step walk stages and more often with the rescue round on;
+             `python -m telomeri_tpu_torch.gap_report` printing the same report
+             on the card's and the CPU's artifacts of the missed gap
 Then the kernels' summary line, and last {"ok": true, "device": {...}}.
 """
 
@@ -58,10 +67,34 @@ SOURCES = {
                   "telomeri_tpu/kernels/walk_vmem.py:61"),
     "score_os_es2": ("telomeri_tpu_torch/csrc/scoring.cu",
                      "telomeri_tpu/kernels/scoring.py:86"),
+    "score_overlaps": ("telomeri_tpu_torch/csrc/scoring.cu",
+                       "telomeri_tpu/kernels/scoring.py:65"),
 }
 PATH_KERNELS = ("walk_scan", "score_os_es2")   # what the scaffold path launches
 DEVICE = "cuda"
 SCORING_ROWS = (1, 1000, 1_000_003, 64 * 2**20)
+
+# phase 7: tests/test_scale.py's datasets as `simulate` flags, and its configs
+SCENARIO_SIMS = {
+    "tandem": ["--genome-len", "260000", "--repeat-len", "4000", "--n-repeat-copies", "6",
+               "--tandem-pairs", "2", "--read-len-mean", "2500", "--read-len-sd", "300",
+               "--read-min-len", "800", "--coverage", "24", "--error-rate", "0.005",
+               "--ins-rate", "0.0025", "--del-rate", "0.0025", "--end-jitter", "10",
+               "--min-sim-overlap", "300", "--cross-copy-overlaps", "true",
+               "--copy-divergence", "0.04", "--seed", "22"],
+    "rescue": ["--genome-len", "220000", "--repeat-len", "12000", "--n-repeat-copies", "3",
+               "--read-len-mean", "2200", "--read-len-sd", "300", "--coverage", "14",
+               "--error-rate", "0.02", "--cross-copy-overlaps", "true",
+               "--copy-divergence", "0.02", "--seed", "2"],
+}
+_CORRECTED = dict(mc_walks_per_end=400, min_identity=0.97)
+_RESCUE = dict(mc_walks_per_end=3, max_steps=32, rescue_walks_per_end=800, polish=True)
+SCENARIOS = (   # name, dataset, config, accepted pairs (rescue_r0 misses gap 2)
+    ("tandem_s48", "tandem", dict(_CORRECTED, max_steps=48), {(0, 2), (2, 4), (4, 6), (6, 8)}),
+    ("tandem_s96", "tandem", dict(_CORRECTED, max_steps=96), {(0, 2), (2, 4), (4, 6), (6, 8)}),
+    ("rescue_r0", "rescue", dict(_RESCUE, rescue_rounds=0), {(0, 2), (2, 4)}),
+    ("rescue_r1", "rescue", dict(_RESCUE, rescue_rounds=1), {(0, 2), (2, 4), (4, 6)}),
+)
 
 
 def emit(phase: str, **kv) -> None:
@@ -164,6 +197,7 @@ def phase_scoring(results: dict) -> None:
 
     rng = np.random.default_rng(2026)
     checked = []
+    errs: dict[int, float] = {}
     for n in SCORING_ROWS:
         g = _geometry(rng, n)
         want = [torch.from_numpy(a) for a in scoring.score_arrays_np(*g)]
@@ -172,6 +206,7 @@ def phase_scoring(results: dict) -> None:
             got = scoring.score_overlaps_cuda(*geom, outputs=outputs)
             plain = scoring.score_overlaps_torch(*geom, outputs=outputs)
             torch.cuda.synchronize()
+            errs[outputs] = max(max_abs_err(k, p) for k, p in zip(got, plain))
             for c, k, p in zip(cols, got, plain):
                 require(same_bits(k, p), f"scoring n={n} outputs={outputs} col {c}: kernel != plain")
                 require(same_bits(k, want[c]), f"scoring n={n} outputs={outputs} col {c}: kernel != numpy")
@@ -182,7 +217,8 @@ def phase_scoring(results: dict) -> None:
                     lambda: scoring.score_overlaps_cuda(*geom, outputs=outputs),
                     lambda: scoring.score_overlaps_torch(*geom, outputs=outputs), 10)
                 gb = n * (32 + 4 * outputs) / 1e9
-                results[name + "@64M"] = dict(ms=ms, plain_ms=plain_ms)
+                results[name + "@64M"] = dict(ms=ms, plain_ms=plain_ms,
+                                              max_abs_err=errs[outputs])
                 emit("scoring_time", kernel=name, rows=n, ms=ms, plain_ms=plain_ms,
                      gb_per_s=gb / (ms / 1e3), plain_gb_per_s=gb / (plain_ms / 1e3),
                      bytes_per_row=32 + 4 * outputs)
@@ -340,6 +376,10 @@ def phase_ecoli(ecoli_dir: str) -> dict:
     with open(out + ".metrics.json") as f:
         m = json.load(f)
     timings, metrics = m["timings_s"], m["metrics"]
+    dispatches = sorted(metrics.get("dispatches", {}))
+    require(any(k.startswith("run_walks:") for k in dispatches) and
+            any(k.startswith("score_edges:") for k in dispatches),
+            f"E. coli metrics.json lacks the dispatch records: {dispatches}")
     with open(out) as f:
         n_scaffolds = sum(1 for ln in f if ln.startswith(">"))
     t0 = time.perf_counter()
@@ -355,6 +395,7 @@ def phase_ecoli(ecoli_dir: str) -> dict:
          mean_identity=rep["mean_identity"], launches=counts,
          timings_s={k: round(v, 4) for k, v in timings.items()},
          n_walks=metrics["n_walks"], walk_stage_walks_per_s=metrics["n_walks"] / timings["run_walks"],
+         dispatches={k: metrics["dispatches"][k]["s"] for k in dispatches},
          counters={k: metrics.get(k) for k in (
              "n_walks_successful", "n_bridges_candidate", "n_bridges_accepted",
              "n_bridges_rescued", "n_scaffolds", "parser_backend", "scoring_backend")})
@@ -497,6 +538,108 @@ def phase_mesh(ecoli_dir: str, tmp: str) -> None:
     emit("mesh", ok=True, devices=n_dev, multi_device_worlds=worlds)
 
 
+def _scenario_run(data: str, cfg, out_dir: str, device: str):
+    """run_pipeline on `device`, leaving out_dir as `scaffold --save-graph
+    --save-walks` leaves a run directory; (result, FASTA bytes, wall s)."""
+    from telomeri_tpu_torch.pipeline import run_pipeline
+
+    os.makedirs(out_dir)
+    out = os.path.join(out_dir, "out.fa")
+    t0 = time.perf_counter()
+    res = run_pipeline(*[os.path.join(data, f) for f in INPUTS], out, cfg, device=device,
+                       save_graph_path=os.path.join(out_dir, "graph.npz"),
+                       save_walks_path=os.path.join(out_dir, "walks.npz"))
+    wall = time.perf_counter() - t0
+    with open(out + ".config.json", "w") as f:
+        f.write(cfg.to_json())
+    return res, _read(out), wall
+
+
+def _gap_report(rundir: str) -> str:
+    proc = subprocess.run([sys.executable, "-m", "telomeri_tpu_torch.gap_report", rundir],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    require(proc.returncode == 0, f"gap_report {rundir} exited {proc.returncode}: "
+                                  f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _metrics_besides_device(res) -> tuple[dict, list[str]]:
+    """(the run's metrics without the device, the scoring backend and the
+    dispatch records, the dispatch keys)."""
+    m = dict(res.metrics.as_dict()["metrics"])
+    for k in ("device", "scoring_backend"):
+        m.pop(k, None)
+    return m, sorted(m.pop("dispatches", {}))
+
+
+def _device_stage_s(res) -> dict:
+    """The run's device stages (and polish, the host stage that dominates), s."""
+    return {k: round(v, 4) for k, v in res.metrics.as_dict()["timings_s"].items()
+            if k in ("score_edges_device", "run_walks", "consensus", "rescue_round_0",
+                     "polish")}
+
+
+def phase_scenarios(tmp: str) -> None:
+    import numpy as np
+    import torch
+
+    from telomeri_tpu_torch.cli.main import main as cli
+    from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from telomeri_tpu_torch.pipeline import ScaffoldConfig
+
+    t0 = time.perf_counter()
+    data = {}
+    for name, flags in SCENARIO_SIMS.items():
+        data[name] = os.path.join(tmp, f"sim_{name}")
+        require(cli(["simulate", "--out", data[name], *flags]) == 0, f"simulate {name} failed")
+    scan_launches = {}
+    for name, dataset, kw, pairs in SCENARIOS:
+        cfg = ScaffoldConfig(**kw, device_scoring="on")
+        reset_launch_counts()
+        card, card_fa, card_s = _scenario_run(data[dataset], cfg,
+                                              os.path.join(tmp, f"{name}_card"), DEVICE)
+        counts = launch_counts()
+        cpu, cpu_fa, cpu_s = _scenario_run(data[dataset], cfg, os.path.join(tmp, f"{name}_cpu"),
+                                           "cpu")
+        require(card_fa == cpu_fa, f"{name}: FASTA differs between {DEVICE} and cpu")
+        for f, a, b in zip(card.walks._fields, card.walks, cpu.walks):
+            require(same_bits(torch.from_numpy(np.asarray(a)), torch.from_numpy(np.asarray(b))),
+                    f"{name}: walk records differ between {DEVICE} and cpu in {f}")
+        require([(b.pair, b.rep_uid) for b in card.accepted] ==
+                [(b.pair, b.rep_uid) for b in cpu.accepted],
+                f"{name}: accepted bridges or representatives differ")
+        (m_card, d_card), (m_cpu, d_cpu) = map(_metrics_besides_device, (card, cpu))
+        require(m_card == m_cpu and d_card == d_cpu, f"{name}: metrics differ")
+        got = {b.pair for b in card.accepted}
+        require(got == pairs, f"{name}: accepted {sorted(got)}, want {sorted(pairs)}")
+        # the tandem runs bridge every gap, so their rescue round never starts
+        # and each of their walk-scan launches is the walk stage's
+        rescued = "rescue_walks:R0" in d_card
+        require(rescued == (name == "rescue_r1"), f"{name}: rescue round ran: {rescued}")
+        require(counts["walk_scan"] > 0 and counts["score_os_es2"] > 0,
+                f"{name}: kernel launches {counts}")
+        steps = card.walks.steps
+        require(cfg.max_steps <= 32 or bool((steps > 32).any()),
+                f"{name}: no walk ran past 32 steps")
+        scan_launches[name] = counts["walk_scan"]
+        emit("scenario", name=name, max_steps=cfg.max_steps, rescue_rounds=cfg.rescue_rounds,
+             rescue_round_ran=rescued, walks=int(len(steps)),
+             walks_past_32_steps=int((steps > 32).sum()), pairs=sorted(got),
+             n_bridges_rescued=m_card.get("n_bridges_rescued"),
+             fasta_identical=True, records_identical=True, dispatches=d_card,
+             launches=counts, wall_s={DEVICE: round(card_s, 4), "cpu": round(cpu_s, 4)},
+             timings_s={DEVICE: _device_stage_s(card), "cpu": _device_stage_s(cpu)})
+    require(scan_launches["rescue_r1"] > scan_launches["rescue_r0"],
+            f"the rescue round launched no walk scan: {scan_launches}")
+    reports = [_gap_report(os.path.join(tmp, f"rescue_r0_{d}")) for d in ("card", "cpu")]
+    require(reports[0] == reports[1], "gap_report differs between the card's and the CPU's run")
+    missed = json.loads(reports[0])["missed"]
+    require([d["gap"] for d in missed] == [2], f"gap_report missed {missed}")
+    emit("scenarios", ok=True, gap_report_identical=True, gap_report_missed=missed,
+         walk_scan_launches=scan_launches, seconds=round(time.perf_counter() - t0, 3))
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -521,13 +664,14 @@ def main(argv: list[str]) -> int:
         phase_lambda(work)
         counts = phase_ecoli(ecoli_dir)
         phase_mesh(ecoli_dir, work)
+        phase_scenarios(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
-    for name in PATH_KERNELS:   # timed at the E. coli path's shapes (phase 3)
-        src, replaces = SOURCES[name]
-        t = results[f"{name}@ecoli"]
+    for name in SOURCES:   # the path's kernels timed at the E. coli shapes (phase 3),
+        src, replaces = SOURCES[name]   # score_overlaps at 2**26 rows (phase 2)
+        t = results[f"{name}@ecoli" if name in PATH_KERNELS else f"{name}@64M"]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=counts[name], max_abs_err=t["max_abs_err"],
                             ms=t["ms"], plain_ms=t["plain_ms"]))

@@ -13,12 +13,18 @@ and the rescue rounds shard over the ranks, with the graph replicated or, for a
 table beyond ~75% of one device's memory, row-sharded (_resolve_placement); the
 scaffolds are the same as on one device. Each host writes its output files
 once, from local rank 0.
+
+The score, walk and rescue dispatches are timed by the reference's
+DispatchWatch (telomeri_tpu/utils/watchdog.py, no jax) under its keys, so
+metrics.json carries the same "dispatches" record; on a card each watched body
+synchronizes the device before the record closes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,6 +38,7 @@ from telomeri_tpu.io.paf import PafRecords, parse_paf
 from telomeri_tpu.scaffold.bridge import resolve_with_blockers
 from telomeri_tpu.scaffold.stitch import Scaffold, Stitcher, emit_scaffolds, extract_path
 from telomeri_tpu.utils.logging import Metrics, log
+from telomeri_tpu.utils.watchdog import DispatchWatch
 from telomeri_tpu.walk.plan import WalkPlan, plan_walks
 from telomeri_tpu_torch.consensus.evidence import read_diversity_gate
 from telomeri_tpu_torch.consensus.grouping import compress, walk_consensus
@@ -55,6 +62,24 @@ from telomeri_tpu_torch.walk.rescue import free_walkable_ends, run_rescue_round
 # the rescore adds to a run at any size and the H100's measured crossover
 # applies only once build_edges leaves scoring to the device (ROADMAP.md).
 AUTO_SCORING_MIN_EDGES = 32_000_000
+
+
+def _pow2_bucket(n: int) -> int:
+    """Dispatch-history key bucket (the reference's): the next power of two >= n."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+@contextmanager
+def _watch(metrics: Metrics, key: str, device: torch.device):
+    """One dispatch record under the reference's key; the device's work is
+    finished before the record closes."""
+    with DispatchWatch(metrics).watch(key):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 @dataclass
@@ -112,7 +137,8 @@ def build_graph(contigs: SequenceSet, reads: SequenceSet, paf: PafRecords,
             on_card and len(edges) >= AUTO_SCORING_MIN_EDGES)
         backend = ("cuda" if on_card else "torch") if want else "numpy"
         if want:
-            with metrics.stage("score_edges_device"):
+            with metrics.stage("score_edges_device"), \
+                    _watch(metrics, f"score_edges:{_pow2_bucket(len(edges))}", device):
                 edges = rescore_edges_device(edges, device)
         metrics.set("scoring_backend", backend)
     with metrics.stage("tensorize"):
@@ -239,20 +265,21 @@ def run_pipeline(
         with metrics.stage("plan_walks"):
             plan = plan_walks(graph, cfg, n_shards=mesh.size if mesh is not None else 1)
         metrics.set("n_walks", plan.n_active)
+        walk_key = f"run_walks:W{_pow2_bucket(max(len(plan), 1))}:S{cfg.max_steps}"
         if mesh is not None:
             walk_cfg = _resolve_placement(cfg, graph, mesh, metrics)
             resolved_placement = walk_cfg.graph_placement
-            with metrics.stage("run_walks"), maybe_trace(trace_dir):
+            with metrics.stage("run_walks"), maybe_trace(trace_dir), \
+                    _watch(metrics, f"{walk_key}:D{mesh.size}", device):
                 # the records stay on their ranks; the gate and the stitcher
                 # fetch the rows they read (fetch_walk_rows)
                 walks, cons = run_walks_distributed(graph, plan, walk_cfg, mesh)
             with metrics.stage("consensus"):
                 bridges = compress(cons)
         else:
-            with metrics.stage("run_walks"), maybe_trace(trace_dir):
+            with metrics.stage("run_walks"), maybe_trace(trace_dir), \
+                    _watch(metrics, walk_key, device):
                 walks_dev = run_walks_host(graph, plan, cfg, device)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)   # the stage time must see real work
             with metrics.stage("consensus"):
                 cons = _consensus(walks_dev, plan, graph, cfg, device)
                 bridges = compress(cons)
@@ -328,7 +355,8 @@ def run_pipeline(
                 break
             if rescue_gd is None and resolved_placement != "rowshard":
                 rescue_gd = graph_to_device(graph, device)
-            with metrics.stage(f"rescue_round_{ri}"):
+            with metrics.stage(f"rescue_round_{ri}"), \
+                    _watch(metrics, f"rescue_walks:R{ri}", device):
                 new, paths_ri, blocked_ends = run_rescue_round(
                     graph, cfg, accepted, ri, gd=rescue_gd,
                     blocked_ends=blocked_ends, device=device, mesh=mesh,

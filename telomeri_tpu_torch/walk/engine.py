@@ -20,10 +20,16 @@ uint32 arithmetic runs on int64 tensors masked to 32 bits; torch.Generator is
 not used, because it does not produce this stream.
 
 Dtypes follow the reference with JAX x64 off: node ids, uids, records and
-sentinels are int32, score_sum is float32. score_sum is summed SEQUENTIALLY over
-steps in float32, starting from 0.0, on every device: that is the order XLA's
-CPU backend uses for the reference's row reduce at max_steps <= 32, so the sums
-are bit-equal to it (the consensus rule 5 tie-break compares them exactly).
+sentinels are int32, score_sum is float32. score_sum is summed over steps in
+float32 in the order XLA's CPU backend (jax 0.9.0) uses for the reference's
+(W, S) row reduce, on every device, so the sums are bit-equal to it (the
+consensus rule 5 tie-break compares them exactly). That order is XLA's tree
+reduction rewrite with a window of 32: up to 32 steps, one sequential sum from
+0.0; above 32, the steps are padded with zeros to a multiple of 32, pad // 2
+zeros in front and the rest behind, each window of 32 is summed sequentially
+from 0.0, and the window sums are reduced by the same rule (_sum_steps). So
+S = 48 sums steps [0, 24) and [24, 48) and adds the two; S = 96 sums three
+windows of 32 left to right.
 """
 
 from __future__ import annotations
@@ -189,12 +195,22 @@ def plan_to_device(p: WalkPlan, device) -> PlanDev:
 
 # --- scans ---------------------------------------------------------------------
 
+_SUM_WINDOW = 32   # XLA CPU's tree-reduction window (module docstring)
+
+
 def _sum_steps(x: torch.Tensor) -> torch.Tensor:
-    """(W, S) float32 -> (W,): sequential over steps from 0.0 (module docstring)."""
-    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-    for s in range(x.shape[1]):
-        acc = acc + x[:, s]
-    return acc
+    """(W, S) float32 -> (W,), in XLA CPU's row-reduce order (module docstring):
+    plain float32 adds in a fixed order, the same on every device."""
+    w, s = x.shape
+    if s > _SUM_WINDOW:
+        n_win = -(-s // _SUM_WINDOW)
+        pad = n_win * _SUM_WINDOW - s
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(w, n_win, _SUM_WINDOW)
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return _sum_steps(acc) if acc.dim() == 2 else acc
 
 
 def _first_true(m: torch.Tensor, steps_i: torch.Tensor, big: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Graph and walks artifacts in the port: round trips, wrong-kind rejection,
 the MC cumsum and split-read flags surviving, resume equal to the direct run,
-and artifacts written by either package resuming in the other with the same
-FASTA. The CLI resumes a graph without the PAF flags, as the reference's does."""
+artifacts written by either package resuming in the other with the same FASTA,
+and the two packages' walks artifacts equal at 48 steps. The CLI resumes a graph
+without the PAF flags, as the reference's does."""
 
 import dataclasses
 import json
@@ -104,6 +105,27 @@ def test_artifacts_resume_across_packages(toy_dataset_dir, tmp_path, writer):
     resume(args[0], args[1], None, None, out1, cfg, graph_artifact=gp)
     resume(args[0], args[1], None, None, out2, cfg, graph_artifact=gp, walks_artifact=wp)
     assert _bytes(out1) == _bytes(out0) and _bytes(out2) == _bytes(out0)
+
+
+def test_walks_artifacts_of_both_packages_equal_above_32_steps(tmp_path_factory, tmp_path):
+    """At 48 steps, where score_sum takes XLA's windowed order (on the spanning
+    reads of test_torch_scenarios.py, whose sums the order changes), the two
+    packages' walks.npz hold the same arrays, float32 compared by their bits."""
+    from test_torch_scenarios import SPANNING_SIM, write_sim
+
+    cfg = ScaffoldConfig(mc_walks_per_end=40, max_steps=48)
+    args = _paths(write_sim(tmp_path_factory, "spanning", SPANNING_SIM))
+    ref_run_pipeline(*args, None, cfg, save_walks_path=str(tmp_path / "ref.npz"))
+    run_pipeline(*args, None, cfg, save_walks_path=str(tmp_path / "port.npz"), device="cpu")
+    with np.load(tmp_path / "ref.npz") as a, np.load(tmp_path / "port.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert (a["walk_steps"] > cfg.max_steps // 2).any()   # sums that span both windows
+        for f in a.files:
+            x, y = a[f], b[f]
+            assert x.dtype == y.dtype and x.shape == y.shape, f
+            if x.dtype == np.float32:
+                x, y = x.view(np.int32), y.view(np.int32)
+            np.testing.assert_array_equal(y, x, err_msg=f)
 
 
 def test_graph_artifact_without_split_read_loads_none(toy_built, tmp_path):

@@ -74,14 +74,16 @@ print("WORKER_OK", flush=True)
 """
 
 
-def run_world(tmp_path, world: int, placement: str, toy_dir: str, pipelines: dict) -> str:
-    """Run WORKER on a gloo world of `world` processes; returns its output dir."""
+def run_world(tmp_path, world: int, placement: str, toy_dir: str, pipelines: dict,
+              cfg: dict = CFG, rescue_cfg: dict = RESCUE_CFG) -> str:
+    """Run WORKER on a gloo world of `world` processes (walks under cfg, a rescue
+    round under rescue_cfg, then the pipelines); returns its output dir."""
     out = tmp_path / f"{placement}_w{world}"
     out.mkdir()
     script = tmp_path / "worker.py"
     script.write_text(WORKER)
     spec = json.dumps(dict(out=str(out), placement=placement, toy=toy_dir, inputs=INPUTS,
-                           cfg=CFG, rescue_cfg=RESCUE_CFG, pipelines=pipelines))
+                           cfg=cfg, rescue_cfg=rescue_cfg, pipelines=pipelines))
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")

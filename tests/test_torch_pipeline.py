@@ -93,17 +93,48 @@ def test_cli_scaffold_cpu_reproduces_golden(tmp_path):
         assert json.load(f)["metrics"]["device"] == "cpu"
 
 
+@pytest.mark.parametrize("mesh", [0, 1], ids=["one_device", "mesh_of_1"])
+def test_metrics_json_has_the_reference_dispatch_records(tmp_path, monkeypatch, mesh):
+    """The CLI's metrics.json carries "dispatches" under the reference's keys
+    (score, walk and rescue dispatches; ":D1" on a mesh of 1), one record each."""
+    from telomeri_tpu.dist.mesh import make_walk_mesh
+    from telomeri_tpu.pipeline import run_pipeline as ref_run_pipeline
+    from telomeri_tpu.utils import watchdog
+
+    history = tmp_path / "dispatch_history.json"
+    monkeypatch.setattr(watchdog, "HISTORY_PATH", str(history))
+    inputs = [os.path.join(LAMBDA, f) for f in INPUTS]
+    out = str(tmp_path / "port.fa")
+    args = ["scaffold", "--device", "cpu", "--device-scoring", "on", "--out", out,
+            "--config", os.path.join(LAMBDA, "config.json")]
+    for flag, path in zip(("--contigs", "--reads", "--paf-read-contig", "--paf-read-read"),
+                          inputs):
+        args += [flag, path]
+    assert cli_main(args + (["--mesh", "1"] if mesh else [])) == 0
+    with open(out + ".metrics.json") as f:
+        got = json.load(f)["metrics"]["dispatches"]
+    want = ref_run_pipeline(*inputs, None, _lambda_cfg(device_scoring="on"),
+                            mesh=make_walk_mesh(1) if mesh else None)
+    assert sorted(got) == sorted(want.metrics.as_dict()["metrics"]["dispatches"])
+    walk_key = f"run_walks:W512:S24{':D1' if mesh else ''}"
+    assert {"score_edges:8192", walk_key} <= set(got), sorted(got)
+    for rec in got.values():
+        assert len(rec["s"]) == 1 and rec["s"][0] >= 0 and rec["slow"] is False
+    assert set(json.loads(history.read_text())) == set(got)
+
+
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter: import the whole port and run its lambda pipeline on
     one device, then on a gloo world of 1 in both graph placements, with graph
-    and walks artifacts saved and resumed and a profiler trace."""
+    and walks artifacts saved and resumed and a profiler trace, then gap_report
+    on those artifacts."""
     code = f"""
 import sys
 import telomeri_tpu_torch.cli.main, telomeri_tpu_torch.interop, telomeri_tpu_torch.kernels.build
 import telomeri_tpu_torch.consensus.coherence, telomeri_tpu_torch.consensus.evidence
 import telomeri_tpu_torch.dist.mesh, telomeri_tpu_torch.dist.rowshard
 import telomeri_tpu_torch.io.artifacts, telomeri_tpu_torch.utils.profiling
-import telomeri_tpu_torch.walk.oracle, telomeri_tpu_torch.probe
+import telomeri_tpu_torch.walk.oracle, telomeri_tpu_torch.probe, telomeri_tpu_torch.gap_report
 from telomeri_tpu.config import ScaffoldConfig
 from telomeri_tpu_torch.dist.mesh import init_distributed, make_walk_mesh, shutdown_distributed
 from telomeri_tpu_torch.pipeline import run_pipeline
@@ -125,6 +156,12 @@ for pl in ("replicated", "rowshard"):
         assert open(t + "/" + f, "rb").read() == golden, (pl, f)
     assert os.listdir(t + "/trace_" + pl), pl
 shutdown_distributed()
+run = t + "/run"
+os.makedirs(run)
+os.replace(t + "/g.npz", run + "/graph.npz")
+os.replace(t + "/w.npz", run + "/walks.npz")
+open(run + "/out.config.json", "w").write(c.to_json())
+assert telomeri_tpu_torch.gap_report.main([run]) == 0
 print("JAX_LOADED" if "jax" in sys.modules else "JAX_ABSENT")
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -2,7 +2,8 @@
 run: on gloo worlds of 1, 2 and 4 CPU processes (test_torch_dist.py's worker),
 the records are bit-equal to one device and to the reference's
 run_walks_rowsharded on a jax mesh of the same size, and the consensus, a
-rescue round and the toy pipeline's FASTA equal the replicated results. Also
+rescue round and the toy pipeline's FASTA equal the replicated results; a world
+of 2 does the same at 48 steps, above XLA's 32-step sequential sum. Also
 the dead-row padding, the ValueError without a mesh, indivisible plans, and
 the auto placement with the device memory limit patched."""
 
@@ -34,6 +35,8 @@ from telomeri_tpu_torch.dist.rowshard import run_walks_rowsharded, shard_graph_r
 from telomeri_tpu_torch.walk import engine
 
 CPU = torch.device("cpu")
+LONG_CFG = dict(CFG, max_steps=48)
+LONG_RESCUE_CFG = dict(RESCUE_CFG, max_steps=48)
 
 
 def fake_mesh(rank: int, size: int) -> WalkMesh:
@@ -69,6 +72,38 @@ def test_rowsharded_records_equal_replicated_and_reference(world, toy_graph):
         rec, _, _ = load_rank(out, r)
         assert_records_equal(one, rec)
         assert_records_equal(ref, rec)
+
+
+def test_rowsharded_world_of_2_above_32_steps(tmp_path_factory):
+    """At 48 steps, where score_sum takes XLA's windowed order (on the spanning
+    reads of test_torch_scenarios.py, whose sums the order changes): the records
+    of a row-sharded gloo world of 2 equal one device and the reference's
+    rowsharded mesh of 2, and its rescue round equals one device's."""
+    from test_torch_scenarios import SPANNING_SIM, write_sim
+
+    from telomeri_tpu.dist.mesh import make_walk_mesh
+    from telomeri_tpu.dist.rowshard import run_walks_rowsharded as ref_rowsharded
+    from telomeri_tpu_torch.walk.rescue import run_rescue_round
+
+    data = write_sim(tmp_path_factory, "spanning", SPANNING_SIM)
+    cfg, rcfg = ScaffoldConfig(**LONG_CFG), ScaffoldConfig(**LONG_RESCUE_CFG)
+    out = run_world(tmp_path_factory.mktemp("rowshard48"), 2, "rowshard", data, {},
+                    cfg=LONG_CFG, rescue_cfg=LONG_RESCUE_CFG)
+    graph = tpipe.build_graph(*tpipe.load_inputs(*[os.path.join(data, f) for f in INPUTS]),
+                              cfg, device="cpu")[1]
+    plan = plan_walks(graph, cfg, n_shards=2)
+    one = engine.run_walks_host(graph, plan, cfg, "cpu").to_numpy()
+    assert (one.steps > cfg.max_steps // 2).any()   # sums that span both windows
+    ref = ref_rowsharded(graph, plan, cfg.mc_seed, n_anchors=graph.n_anchors,
+                         max_steps=cfg.max_steps, mesh=make_walk_mesh(2)).to_numpy()
+    new, paths, blocked = run_rescue_round(graph, rcfg, [], 0, device="cpu")
+    for r in range(2):
+        rec, _, _ = load_rank(out, r)
+        assert_records_equal(one, rec)
+        assert_records_equal(ref, rec)
+        got = read_json(out, f"rescue_rank{r}.json")
+        assert (got["new"], got["blocked"]) == (repr(new), sorted(map(repr, blocked)))
+        assert got["paths"] == {str(u): [p.nodes, p.eids] for u, p in paths.items()}
 
 
 def test_rowsharded_consensus_equals_replicated(world, toy_graph):

@@ -1,15 +1,17 @@
 """The port's walk engine against the reference's, bit for bit: the MC section
 (against the lax.scan engine and the Pallas scan in interpret mode), greedy and
 mixed sections, sectioned and chunked dispatch, both revisit branches of the MC
-event resolution, and the scalar oracle. On CPU tensors the walk-scan wrapper
-runs its plain torch version; the CUDA kernel is held against that version on
-the card (test_torch_pipeline.py, gpu marker, and chip_smoke.py)."""
+event resolution, the scalar oracle, and score_sum in XLA's row-reduce order
+above 32 steps. On CPU tensors the walk-scan wrapper runs its plain torch
+version; the CUDA kernel is held against that version on the card
+(test_torch_pipeline.py, gpu marker, and chip_smoke.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_walk import _resolve_oracle, chain_graph, random_graph
+from test_walk import _resolve_oracle, chain_graph, mk_graph, random_graph
 
 from telomeri_tpu.config import ScaffoldConfig
 from telomeri_tpu.kernels.walk_vmem import run_walks_mc_vmem
@@ -194,3 +196,58 @@ def test_empty_plan_gives_empty_records():
     p = plan_walks(g, ScaffoldConfig(mc_walks_per_end=4))
     got = engine.run_walks_host(g, p, ScaffoldConfig(max_steps=8), "cpu")
     assert tuple(got.nodes.shape) == (0, 9) and got.score_sum.dtype == torch.float32
+
+
+@pytest.mark.parametrize("w", [1, 7, 1024])
+def test_sum_steps_matches_xla_row_sum(w):
+    """_sum_steps is bit-equal to the reference's jnp.sum(axis=1) for every
+    S in 1..160: sequential up to 32 steps, XLA's padded 32-wide windows above.
+    One jit holds the 160 row sums (XLA rewrites each reduce on its own), so
+    the module compiles once per W."""
+    rng = np.random.default_rng(w)
+    xs = []
+    for s in range(1, 161):
+        x = (rng.standard_normal((w, s)) * rng.uniform(0.1, 100, (w, s))).astype(np.float32)
+        x[rng.random((w, s)) < 0.3] = 0.0   # steps not taken
+        xs.append(x)
+    row_sums = jax.jit(lambda arrays: [jnp.sum(a, axis=1) for a in arrays])(xs)
+    for x, want in zip(xs, row_sums):
+        got = engine._sum_steps(torch.from_numpy(x)).numpy().view(np.int32)
+        np.testing.assert_array_equal(got, np.asarray(want).view(np.int32),
+                                      err_msg=f"S={x.shape[1]}")
+
+
+def _long_walk_graph(rng, n_seqs=600, n_anchors=4, k=4):
+    """Every node has 2..k out-edges and anchors are rare, so most walks run
+    past 32 steps (random_graph's dead rows end them within a few)."""
+    rows = {}
+    for u in range(2 * n_seqs):
+        dsts = rng.choice(2 * n_seqs, size=int(rng.integers(2, k + 1)), replace=False)
+        rows[u] = [(int(d), float(np.float32(rng.uniform(0.1, 50))),
+                    float(np.float32(rng.uniform(0.1, 50))), int(rng.integers(1, 500)))
+                   for d in dsts]
+    return mk_graph(2 * n_seqs, n_anchors, k, rows)
+
+
+@pytest.mark.parametrize("dispatch", ["mc", "greedy", "mixed", "chunked"])
+@pytest.mark.parametrize("max_steps", [48, 64, 96])
+def test_engines_match_reference_above_32_steps(rng, max_steps, dispatch):
+    g = _long_walk_graph(rng)
+    cfg = ScaffoldConfig(mc_walks_per_end=16, max_steps=max_steps, max_walk_batch=64)
+    p = plan_walks(g, cfg)
+    if dispatch == "chunked":
+        want = ref.run_walks_host(g, p, cfg)
+        got = engine.run_walks_host(g, p, cfg, "cpu")
+    else:
+        if dispatch != "mixed":
+            lo, hi = p.sections[dispatch]
+            p = ref._slice_plan(p, lo, hi)
+        gd, pd = ref.graph_to_device(g), ref.plan_to_device(p)
+        kw = dict(n_anchors=g.n_anchors, max_steps=max_steps)
+        want = (ref._run_walks_mc_fast(gd, pd, cfg.mc_seed, **kw) if dispatch == "mc"
+                else ref._run_walks_kind(gd, pd, cfg.mc_seed, **kw, kind=dispatch))
+        got = engine.run_walks_kind(engine.graph_to_device(g, "cpu"),
+                                    engine.plan_to_device(p, "cpu"), cfg.mc_seed, **kw,
+                                    kind=dispatch)
+    assert (np.asarray(want.steps) > 32).any()   # the windowed order is exercised
+    assert_walks_equal(want, got)
