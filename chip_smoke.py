@@ -10,10 +10,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   2 scoring  both scoring kernels (4 and 2 outputs) bitwise equal to the plain
              torch version on the card and to the numpy oracle, n = 1 .. 64M;
              kernel and plain times at 64M rows
-  3 walks    simulates the E. coli preset (reused by phase 5); on the lambda
-             and E. coli graphs the walk-scan kernel's records and resolved
-             walks are bitwise equal to the plain scan on the card and on the
-             CPU; kernel and plain times, also at the rescue round's batch cap
+  3 walks    simulates the E. coli preset (reused by phase 5) and the tandem
+             array (reused by phase 7); on the lambda and E. coli graphs the
+             fused walk-scan kernel's records and resolved walks are bitwise
+             equal to its plain version (the torch draw table, then the plain
+             scan) on the card and on the CPU; kernel and plain times beside
+             the bound, also at the rescue round's batch cap; the E. coli MC
+             section part by part (draw table, fused scan, event resolution:
+             ms and device launches each); the
+             kernel against its plain version at 48, 96 and odd step counts on
+             the tandem table, with rescue uids and negative seeds, and at
+             H = 128, 256 and 512 on synthetic hub rows
   4 lambda   run_pipeline on testdata/lambda with device scoring on the card:
              byte-identical to golden_scaffolds.fa, both path kernels launched
   5 ecoli    the CLI `scaffold --device cuda --device-scoring on` on the E. coli
@@ -45,7 +52,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              and 96-step walk stages and more often with the rescue round on;
              `python -m telomeri_tpu_torch.gap_report` printing the same report
              on the card's and the CPU's artifacts of the missed gap
-Then the kernels' summary line, and last {"ok": true, "device": {...}}.
+Then neither telomeri_tpu nor jax may be in sys.modules; the kernels' summary
+line (time, plain time and bound of each), and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -145,6 +153,18 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12       # H100 non-tensor float32 rate, taken for int32 too
+
+
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """bound_ms and bound_by of one kernel call: the larger of its bytes over
+    the memory rate and its operations over the peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bound_bytes=n_bytes)
+
+
 # --- phases --------------------------------------------------------------------
 
 def phase_device() -> None:
@@ -189,6 +209,12 @@ def _geometry(rng, n: int):
     return g
 
 
+def _scoring_bound(n: int, outputs: int) -> dict:
+    """8 int32 columns read and `outputs` float32 columns written once; about
+    12 float32 operations a row."""
+    return _bound(n * (32 + 4 * outputs), n * 12)
+
+
 def phase_scoring(results: dict) -> None:
     import numpy as np
     import torch
@@ -218,7 +244,8 @@ def phase_scoring(results: dict) -> None:
                     lambda: scoring.score_overlaps_torch(*geom, outputs=outputs), 10)
                 gb = n * (32 + 4 * outputs) / 1e9
                 results[name + "@64M"] = dict(ms=ms, plain_ms=plain_ms,
-                                              max_abs_err=errs[outputs])
+                                              max_abs_err=errs[outputs],
+                                              **_scoring_bound(n, outputs))
                 emit("scoring_time", kernel=name, rows=n, ms=ms, plain_ms=plain_ms,
                      gb_per_s=gb / (ms / 1e3), plain_gb_per_s=gb / (plain_ms / 1e3),
                      bytes_per_row=32 + 4 * outputs)
@@ -226,53 +253,80 @@ def phase_scoring(results: dict) -> None:
     emit("scoring", ok=True, bitwise_equal=checked)
 
 
-def _mc_inputs(graph, plan, cfg, device):
+def _mc_inputs(graph, plan, device):
     from telomeri_tpu_torch.walk import engine
 
     lo, hi = plan.sections["mc"]
     pd = engine.plan_to_device(engine._slice_plan(plan, lo, hi), device)
-    gd = engine.graph_to_device(graph, device)
-    bits = engine.stable_bits_table(cfg.mc_seed, pd.uid, cfg.max_steps)
-    return gd, pd, bits
+    return engine.graph_to_device(graph, device), pd
 
 
-def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True) -> None:
+def _plain_scan(wide, start, uid, seed, s):
+    """The fused kernel's plain version: the draw table, then the plain scan."""
+    from telomeri_tpu_torch.kernels import walk_scan
+    from telomeri_tpu_torch.walk import engine
+
+    return walk_scan.walk_scan_torch(wide, start, engine.stable_bits_table(seed, uid, s), s)
+
+
+def _scan_equals_plain(name, wide, pd, seed, s, n_anchors):
+    """The fused kernel's records and the walks resolved from them, held by
+    their bits against the plain version's on the card; (kernel records, max
+    abs err, resolved walks)."""
     import torch
 
     from telomeri_tpu_torch.kernels import walk_scan
     from telomeri_tpu_torch.walk import engine
 
-    gd, pd, bits = _mc_inputs(graph, plan, cfg, DEVICE)
-    s = cfg.max_steps
-    w = pd.start.shape[0]
-    kern = walk_scan.walk_scan_cuda(gd.wide, pd.start, bits, s)
-    plain = walk_scan.walk_scan_torch(gd.wide, pd.start, bits, s)
+    kern = walk_scan.walk_scan_cuda(wide, pd.start, pd.uid, seed, s)
+    plain = _plain_scan(wide, pd.start, pd.uid, seed, s)
     torch.cuda.synchronize()
     err = max_abs_err(kern, plain)
     require(same_bits(kern, plain), f"{name}: walk-scan records differ from the plain scan "
                                     f"(max abs err {err})")
-    resolve = lambda r, p, g: engine.resolve_mc_events(
-        p, *r, n_nodes=int(g.wide.shape[0]), n_anchors=graph.n_anchors, max_steps=s)
-    res_k, res_p = resolve(kern, pd, gd), resolve(plain, pd, gd)
+    resolve = lambda r: engine.resolve_mc_events(
+        pd, *r, n_nodes=int(wide.shape[0]), n_anchors=n_anchors, max_steps=s)
+    res_k, res_p = resolve(kern), resolve(plain)
     for f, a, b in zip(res_k._fields, res_k, res_p):
         require(same_bits(a, b), f"{name}: resolved {f} differs (card)")
-    if cpu_check:
-        gd_c, pd_c, bits_c = _mc_inputs(graph, plan, cfg, "cpu")
-        cpu = walk_scan.walk_scan(gd_c.wide, pd_c.start, bits_c, s)
-        require(same_bits(kern, cpu), f"{name}: walk-scan records differ from the CPU scan")
-        res_c = resolve(cpu, pd_c, gd_c)
-        for f, a, b in zip(res_k._fields, res_k, res_c):
-            require(same_bits(a, b), f"{name}: resolved {f} differs (CPU)")
-    ms, plain_ms = paired_ms(lambda: walk_scan.walk_scan_cuda(gd.wide, pd.start, bits, s),
-                             lambda: walk_scan.walk_scan_torch(gd.wide, pd.start, bits, s), 5)
-    section_ms = cuda_ms(lambda: engine.run_walks_mc(
-        gd, pd, cfg.mc_seed, n_anchors=graph.n_anchors, max_steps=s), 5)
-    results[f"walk_scan@{name}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
-    emit("walk_scan", graph=name, walks=w, max_steps=s, h=gd.h, nodes=int(gd.wide.shape[0]),
-         table_mb=engine.device_table_bytes(graph) / 1e6, ms=ms, plain_ms=plain_ms,
-         walks_per_s=w / (ms / 1e3), plain_walks_per_s=w / (plain_ms / 1e3),
-         mc_section_ms=section_ms, mc_section_walks_per_s=w / (section_ms / 1e3),
-         successful=int(res_k.success.sum()), cpu_checked=cpu_check)
+    return kern, err, res_k
+
+
+def _device_launches(fn) -> int:
+    """Device kernels that one call of fn() launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "memcpy" not in e.key.lower()
+            and "memset" not in e.key.lower())
+    require(n > 0, "torch.profiler saw no device kernel")
+    return n
+
+
+def _scan_bound(kern, wide, pd, s) -> dict:
+    """The least time the card could take for this scan, from this run's data:
+    start and uid read once, the cum block of every distinct row visited and
+    the four picked words of every distinct (row, edge) read once, the five
+    records written once; against H compares and half a Threefry block (about
+    60 integer operations) per walk and step."""
+    import torch
+
+    w, h = pd.start.shape[0], wide.shape[1] // 6
+    seq = torch.cat([pd.start[:, None], kern[0][:, :-1]], dim=1).long()   # (W, S)
+    col = torch.arange(s, device=seq.device)[None, :].expand_as(seq)
+    last = torch.cummax(torch.where(seq >= 0, col, 0), dim=1).values   # a pad slot stays put
+    cur = seq.gather(1, last)
+    rows = int(torch.unique(cur).numel())
+    picks = int(torch.unique(cur * 2**32 + (kern[2].long() & 0xFFFFFFFF)).numel())
+    n_bytes = 8 * w + rows * 4 * h + picks * 16 + 5 * w * s * 4
+    return dict(_bound(n_bytes, w * s * (h + 60)), rows_visited=rows, picks=picks)
 
 
 def _build(data_dir: str, cfg):
@@ -283,7 +337,108 @@ def _build(data_dir: str, cfg):
     return edges, graph, plan_walks(graph, cfg)
 
 
-def phase_walks(ecoli_dir: str, results: dict) -> None:
+def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True,
+                     split: bool = False) -> None:
+    """One graph's MC section: the fused kernel against its plain version (and
+    the CPU), its time beside the plain version's and its bound, and the whole
+    section's time. split: also the section part by part, with launch counts."""
+    from telomeri_tpu_torch.kernels import walk_scan
+    from telomeri_tpu_torch.walk import engine
+
+    gd, pd = _mc_inputs(graph, plan, DEVICE)
+    s, seed, w = cfg.max_steps, cfg.mc_seed, pd.start.shape[0]
+    kern, err, res_k = _scan_equals_plain(name, gd.wide, pd, seed, s, graph.n_anchors)
+    if cpu_check:
+        gd_c, pd_c = _mc_inputs(graph, plan, "cpu")
+        cpu = walk_scan.walk_scan(gd_c.wide, pd_c.start, pd_c.uid, seed, s)
+        require(same_bits(kern, cpu), f"{name}: walk-scan records differ from the CPU scan")
+        res_c = engine.resolve_mc_events(pd_c, *cpu, n_nodes=int(gd.wide.shape[0]),
+                                         n_anchors=graph.n_anchors, max_steps=s)
+        for f, a, b in zip(res_k._fields, res_k, res_c):
+            require(same_bits(a, b), f"{name}: resolved {f} differs (CPU)")
+    scan = lambda: walk_scan.walk_scan_cuda(gd.wide, pd.start, pd.uid, seed, s)
+    section = lambda: engine.run_walks_mc(gd, pd, seed, n_anchors=graph.n_anchors, max_steps=s)
+    ms, plain_ms = paired_ms(scan, lambda: _plain_scan(gd.wide, pd.start, pd.uid, seed, s), 5)
+    section_ms = cuda_ms(section, 5)
+    bound = _scan_bound(kern, gd.wide, pd, s)
+    results[f"walk_scan@{name}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **bound)
+    emit("walk_scan", graph=name, walks=w, max_steps=s, h=gd.h, nodes=int(gd.wide.shape[0]),
+         table_mb=engine.device_table_bytes(graph) / 1e6, ms=ms, plain_ms=plain_ms,
+         walks_per_s=w / (ms / 1e3), plain_walks_per_s=w / (plain_ms / 1e3),
+         mc_section_ms=section_ms, mc_section_walks_per_s=w / (section_ms / 1e3),
+         successful=int(res_k.success.sum()), cpu_checked=cpu_check,
+         share_of_bound=bound["bound_ms"] / ms, **bound)
+    if not split:
+        return
+    # the section part by part: the draw table and the event resolution in
+    # torch, as the section ran them before the draw moved into the kernel
+    draw = lambda: engine.stable_bits_table(seed, pd.uid, s)
+    resolve = lambda: engine.resolve_mc_events(
+        pd, *kern, n_nodes=int(gd.wide.shape[0]), n_anchors=graph.n_anchors, max_steps=s)
+    parts = {k: dict(ms=cuda_ms(fn, 10), launches=_device_launches(fn))
+             for k, fn in (("draw_table", draw), ("fused_scan", scan), ("resolve", resolve))}
+    require(parts["fused_scan"]["launches"] == 1,
+            f"{name}: the fused scan launched {parts['fused_scan']['launches']} device kernels")
+    emit("mc_split", graph=name, walks=w, max_steps=s, **{
+        f"{k}_{m}": v for k, part in parts.items() for m, v in part.items()})
+    emit("mc_section", graph=name, walks=w, max_steps=s, ms=cuda_ms(section, 10),
+         launches=_device_launches(section), fused_scan_ms=parts["fused_scan"]["ms"],
+         resolve_ms=parts["resolve"]["ms"], draw_table_ms_no_longer_run=parts["draw_table"]["ms"])
+
+
+def _synthetic_plan(rng, n_nodes: int, w: int, uid):
+    import numpy as np
+    import torch
+
+    from telomeri_tpu_torch.walk.engine import PlanDev
+
+    put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device=DEVICE, dtype=dt)
+    return PlanDev(start=put(rng.integers(0, n_nodes, w), torch.int32),
+                   first_edge=put(np.full(w, -1), torch.int32), mode=put(np.full(w, 2), torch.int32),
+                   uid=put(uid, torch.int32), active=put(np.ones(w, bool), torch.bool))
+
+
+def _check_scan_shapes(tandem_dir: str) -> None:
+    """The fused kernel against its plain version where the main path's shapes
+    do not reach: 48, 96 and an odd number of steps on the tandem table, rescue
+    uids (>= 1 << 30), a negative seed, wider rows (H = 128, 256 and 512: hub
+    rows, the last through the kernel's looped path)."""
+    import numpy as np
+    import torch
+
+    from telomeri_tpu_torch.pipeline import ScaffoldConfig
+    from telomeri_tpu_torch.walk.engine import pack_wide
+    from telomeri_tpu_torch.walk.rescue import RESCUE_UID_BASE
+
+    checked = []
+    _, graph, plan = _build(tandem_dir, ScaffoldConfig(**_CORRECTED, max_steps=48))
+    gd, pd = _mc_inputs(graph, plan, DEVICE)
+    rescue_uid = pd._replace(uid=pd.uid + RESCUE_UID_BASE)
+    for s, seed, p in ((48, 0, pd), (96, 0, pd), (33, 0, pd), (1, 0, pd), (48, 0, rescue_uid),
+                       (33, -7, rescue_uid), (32, -2**31, pd), (33, 5, rescue_uid), (48, 1, pd),
+                       (33, -1, rescue_uid)):
+        name = f"tandem S={s} seed={seed} uid0={int(p.uid[0])}"
+        _, _, res = _scan_equals_plain(name, gd.wide, p, seed, s, graph.n_anchors)
+        checked.append(dict(case=name, h=gd.h, walks=int(p.start.shape[0]),
+                            successful=int(res.success.sum())))
+    rng = np.random.default_rng(4)
+    for h, k in ((128, 100), (128, 128), (256, 200), (512, 300), (64, 64), (64, 40)):
+        n, w = 4096, 20_000
+        deg = rng.integers(0, k + 1, n)   # rows of 0..k edges, some dead (all-zero weights)
+        slot = np.arange(k)[None, :] < deg[:, None]
+        nbr = np.where(slot, rng.integers(0, n, (n, k)), -1)
+        es = np.where(slot & (rng.random((n, k)) < 0.9), rng.uniform(0.5, 50, (n, k)), 0)
+        cum = np.cumsum(np.ceil(es), axis=1).astype(np.int32)
+        wide = torch.from_numpy(pack_wide(nbr, cum, np.where(slot, rng.integers(0, 10**6, (n, k)), -1),
+                                          np.where(slot, 3, 0), es, es, h)).to(DEVICE)
+        uid = np.concatenate([np.arange(w // 2), RESCUE_UID_BASE + np.arange(w - w // 2)])
+        name = f"synthetic H={h} k={k}"
+        _, _, res = _scan_equals_plain(name, wide, _synthetic_plan(rng, n, w, uid), -3, 33, 8)
+        checked.append(dict(case=name, h=h, walks=w, successful=int(res.success.sum())))
+    emit("walk_scan_shapes", ok=True, bitwise_equal=checked)
+
+
+def phase_walks(ecoli_dir: str, tandem_dir: str, results: dict) -> None:
     import dataclasses
 
     import numpy as np
@@ -299,6 +454,10 @@ def phase_walks(ecoli_dir: str, results: dict) -> None:
     _, lam_graph, lam_plan = _build(LAMBDA, lam_cfg)
     _check_walk_scan("lambda", lam_graph, lam_plan, lam_cfg, results)
 
+    require(cli(["simulate", "--out", tandem_dir, *SCENARIO_SIMS["tandem"]]) == 0,
+            "simulate tandem failed")
+    _check_scan_shapes(tandem_dir)
+
     t0 = time.perf_counter()
     require(cli(["simulate", "--preset", "ecoli", "--out", ecoli_dir]) == 0, "simulate failed")
     emit("simulate", preset="ecoli", seconds=round(time.perf_counter() - t0, 3))
@@ -308,7 +467,7 @@ def phase_walks(ecoli_dir: str, results: dict) -> None:
     emit("ecoli_graph", seconds=round(time.perf_counter() - t0, 3), edges=len(edges),
          nodes=graph.n_nodes, k=graph.max_degree, walks=plan.n_active,
          sections=plan.sections)
-    _check_walk_scan("ecoli", graph, plan, cfg, results)
+    _check_walk_scan("ecoli", graph, plan, cfg, results, split=True)
 
     # the rescue round's batch cap: MAX_RESCUE_WALKS MC walks from contig ends
     ends = np.flatnonzero(graph.anchor_mask() & (graph.deg > 0)).astype(np.int32)
@@ -331,8 +490,10 @@ def phase_walks(ecoli_dir: str, results: dict) -> None:
                 f"ecoli rescore: kernel differs (max abs err {err})")
     ms, plain_ms = paired_ms(lambda: scoring.score_overlaps_cuda(*geom, outputs=2),
                              lambda: scoring.score_overlaps_torch(*geom, outputs=2), 20)
-    results["score_os_es2@ecoli"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
-    emit("scoring_time", kernel="score_os_es2", rows=len(edges), ms=ms, plain_ms=plain_ms)
+    results["score_os_es2@ecoli"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                         **_scoring_bound(len(edges), 2))
+    emit("scoring_time", kernel="score_os_es2", rows=len(edges), ms=ms, plain_ms=plain_ms,
+         **_scoring_bound(len(edges), 2))
 
 
 def phase_lambda(tmp: str) -> None:
@@ -517,8 +678,19 @@ def phase_mesh(ecoli_dir: str, tmp: str) -> None:
     files = os.listdir(trace) if os.path.isdir(trace) else []
     require(len(files) == 1, f"--trace wrote {files}")
     text = _read(os.path.join(trace, files[0])).decode()
-    require("walk_scan_kernel" in text, "the replicated mesh trace never names walk_scan_kernel")
-    emit("mesh_trace", file=files[0], bytes=len(text), names_walk_scan_kernel=True)
+    kernels = [e["name"] for e in sorted(
+        (e for e in json.loads(text)["traceEvents"] if e.get("cat") == "kernel"),
+        key=lambda e: e["ts"])]
+    scans = [i for i, k in enumerate(kernels) if "walk_scan_kernel" in k]
+    require(bool(scans), "the replicated mesh trace never names walk_scan_kernel")
+    # before the scan: the greedy section's torch kernels, which neither shift nor
+    # xor as the draw table's do (after it, the consensus's path signatures do)
+    threefry = sorted({k for k in kernels[:scans[0]]
+                       if "shift" in k.lower() or "xor" in k.lower()})
+    require(not threefry, f"the walk stage still ran the torch draw table: {threefry}")
+    emit("mesh_trace", file=files[0], bytes=len(text), names_walk_scan_kernel=True,
+         device_kernels=len(kernels), kernels_before_the_scan=scans[0],
+         threefry_elementwise_kernels_before_the_scan=0)
     run("b_rowshard", 1, "rowshard", paf)
     run("c_resume", 1, "replicated", ["--graph", graph_a, "--walks", walks_a])
 
@@ -580,7 +752,7 @@ def _device_stage_s(res) -> dict:
                      "polish")}
 
 
-def phase_scenarios(tmp: str) -> None:
+def phase_scenarios(tmp: str, tandem_dir: str) -> None:
     import numpy as np
     import torch
 
@@ -589,10 +761,9 @@ def phase_scenarios(tmp: str) -> None:
     from telomeri_tpu_torch.pipeline import ScaffoldConfig
 
     t0 = time.perf_counter()
-    data = {}
-    for name, flags in SCENARIO_SIMS.items():
-        data[name] = os.path.join(tmp, f"sim_{name}")
-        require(cli(["simulate", "--out", data[name], *flags]) == 0, f"simulate {name} failed")
+    data = {"tandem": tandem_dir, "rescue": os.path.join(tmp, "sim_rescue")}   # tandem: phase 3's
+    require(cli(["simulate", "--out", data["rescue"], *SCENARIO_SIMS["rescue"]]) == 0,
+            "simulate rescue failed")
     scan_launches = {}
     for name, dataset, kw, pairs in SCENARIOS:
         cfg = ScaffoldConfig(**kw, device_scoring="on")
@@ -654,27 +825,31 @@ def main(argv: list[str]) -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    ecoli_dir = os.path.join(work, "ecoli")
+    ecoli_dir, tandem_dir = os.path.join(work, "ecoli"), os.path.join(work, "sim_tandem")
     results: dict = {}
     try:
         phase_device()
         phase_build()
         phase_scoring(results)
-        phase_walks(ecoli_dir, results)
+        phase_walks(ecoli_dir, tandem_dir, results)
         phase_lambda(work)
         counts = phase_ecoli(ecoli_dir)
         phase_mesh(ecoli_dir, work)
-        phase_scenarios(work)
+        phase_scenarios(work, tandem_dir)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    loaded = sorted(m for m in ("telomeri_tpu", "jax") if m in sys.modules)
+    require(not loaded, f"the port's run imported {loaded}")
 
     kernels = []
     for name in SOURCES:   # the path's kernels timed at the E. coli shapes (phase 3),
         src, replaces = SOURCES[name]   # score_overlaps at 2**26 rows (phase 2)
         t = results[f"{name}@ecoli" if name in PATH_KERNELS else f"{name}@64M"]
+        # library_ms: no single PyTorch call computes either function
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=counts[name], max_abs_err=t["max_abs_err"],
-                            ms=t["ms"], plain_ms=t["plain_ms"]))
+                            launches=counts[name], launches_per_run=counts[name],
+                            max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

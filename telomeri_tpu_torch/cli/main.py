@@ -5,7 +5,9 @@
       [--graph G | --save-graph G] [--walks W | --save-walks W] [--trace DIR] \
       [ScaffoldConfig flags]
   torchrun --nproc-per-node N -m telomeri_tpu_torch.cli.main scaffold --mesh N ...
-  telomeri-tpu-torch simulate|validate|stats ...     (host-only, as telomeri-tpu)
+  telomeri-tpu-torch simulate --out DIR [--preset P] [SimConfig flags]
+  telomeri-tpu-torch validate --scaffolds S.fa --genome G.fa [--agp FILE] ...
+  telomeri-tpu-torch stats FASTX...
 
 `scaffold` takes the reference CLI's flags (every ScaffoldConfig field is one)
 plus --device: "cuda" (the default) runs the device stages and the
@@ -14,22 +16,58 @@ plain torch versions. --mesh N shards the walks over N devices, one process
 each, so it runs under torchrun with N processes (NCCL for cuda, gloo for cpu);
 --mesh 1 also runs as one plain process. As in the reference, the resolved
 config and the stage metrics are written next to the FASTA (<out>.config.json,
-<out>.metrics.json), once per host. The host-only subcommands are the
-reference's own, which never import jax.
-
-The flags and their parsing come from two private helpers of the reference CLI,
-`telomeri_tpu.cli.main._add_config_flags` and `_config_from_args`: a change to
-either there changes this CLI too (test_cli_scaffold_cpu_reproduces_golden in
-tests/test_torch_pipeline.py is the check that notices).
+<out>.metrics.json), once per host. simulate, validate and stats are host-only
+and take the reference CLI's arguments; they import neither torch nor the
+device modules.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 import sys
 
-from telomeri_tpu.cli import main as reference_cli
-from telomeri_tpu.utils.logging import Metrics, log, setup_logging
+from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.utils.logging import Metrics, log, setup_logging
+
+
+def _parse_bool(s: str) -> bool:
+    v = s.strip().lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
+
+
+def _parse_int_tuple(s: str) -> tuple:
+    """Comma-separated ints -> tuple (e.g. --inverted-copies 1,3); '' -> ()."""
+    return tuple(int(x) for x in s.split(",") if x.strip() != "")
+
+
+def _add_config_flags(p: argparse.ArgumentParser) -> None:
+    for f in dataclasses.fields(ScaffoldConfig):
+        flag = "--" + f.name.replace("_", "-")
+        # argparse's type=bool would parse "--flag False" as True (any nonempty
+        # string is truthy); map bool fields through an explicit parser.
+        ty = type(f.default)
+        if ty is bool:
+            ty = _parse_bool
+        p.add_argument(flag, type=ty, default=None,
+                       help=f"override config field {f.name} (default {f.default})")
+
+
+def _config_from_args(args) -> ScaffoldConfig:
+    base = {}
+    if getattr(args, "config", None):
+        with open(args.config) as f:
+            base = dataclasses.asdict(ScaffoldConfig.from_json(f.read()))
+    for f in dataclasses.fields(ScaffoldConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            base[f.name] = v
+    return ScaffoldConfig(**base)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,25 +102,108 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the walk stage to DIR")
     s.add_argument("--agp", metavar="FILE",
                    help="also write scaffold composition as AGP v2.1")
-    reference_cli._add_config_flags(s)
+    _add_config_flags(s)
 
-    for name, text in (("stats", "print assembly stats (N50 etc.)"),
-                       ("validate", "align scaffolds to a reference genome"),
-                       ("simulate", "generate a synthetic test dataset")):
-        # arguments are the reference CLI's; they pass through unparsed
-        sub.add_parser(name, help=f"{text} (as telomeri-tpu {name})", add_help=False)
+    t = sub.add_parser("stats", help="print assembly stats (N50 etc.) for FASTA/FASTQ files")
+    t.add_argument("fastx", nargs="+", help="FASTA/FASTQ files (.gz ok)")
+
+    v = sub.add_parser(
+        "validate",
+        help="align scaffolds to a known reference genome and report identity "
+             "(indel-tolerant: k-mer anchor chains + banded edit distance)")
+    v.add_argument("--scaffolds", required=True, help="scaffolds FASTA")
+    v.add_argument("--genome", required=True, help="reference genome FASTA")
+    v.add_argument("--seed-kmer", type=int, default=24,
+                   help="anchor k-mer length (<= 31)")
+    v.add_argument("--stride", type=int, default=32,
+                   help="scaffold anchor sampling stride (bp)")
+    v.add_argument("--agp", metavar="FILE",
+                   help="AGP from the scaffold run: also report identity in a "
+                        "window around every stitch junction")
+    v.add_argument("--junction-window", type=int, default=2000,
+                   help="half-window around each junction (bp)")
+    v.add_argument("--sample", type=int, default=1,
+                   help="align every Nth segment, estimate the rest with error "
+                        "bars (junction windows + misjoin detection stay exact)")
+    v.add_argument("--jobs", type=int, default=0,
+                   help="worker processes for segment alignment "
+                        "(0 = all CPU cores; results identical at any count)")
+    v.add_argument("--index-cache", metavar="DIR", default="auto",
+                   help="persist the reference k-mer index (minutes to build "
+                        "at genome scale, loads memory-mapped in seconds): "
+                        "'auto' = next to the genome file, 'off' = disable, "
+                        "or an explicit directory")
+
+    g = sub.add_parser("simulate", help="generate a synthetic test dataset")
+    g.add_argument("--out", required=True, help="output directory")
+    from telomeri_tpu_torch.sim import PRESETS, SimConfig
+    g.add_argument("--preset", choices=sorted(PRESETS),
+                   help="evaluation-config preset (flags override its fields)")
+    for f in dataclasses.fields(SimConfig):
+        ty = type(f.default)
+        if ty is bool:
+            ty = _parse_bool
+        elif ty is tuple:   # e.g. --inverted-copies 1,3 / --dropout-starts 40000
+            ty = _parse_int_tuple
+        g.add_argument("--" + f.name.replace("_", "-"), type=ty,
+                       default=None, help=f"default {f.default}")
     return ap
 
 
+def _host_command(args) -> int:
+    """stats / validate / simulate: the reference CLI's host-only subcommands."""
+    import json
+
+    if args.cmd == "stats":
+        from telomeri_tpu_torch.io.fasta import read_fasta
+        from telomeri_tpu_torch.utils.stats import assembly_stats
+
+        # lazy="auto": stats only needs lengths, which the mmap index provides
+        # without materializing whole-genome sequence bytes
+        out = {p: assembly_stats(read_fasta(p, lazy="auto").lengths) for p in args.fastx}
+        print(json.dumps(out, indent=2, sort_keys=True))
+        return 0
+
+    if args.cmd == "validate":
+        from telomeri_tpu_torch.io.fasta import read_fasta
+        from telomeri_tpu_torch.utils.validate import read_agp_junctions, validate_assembly
+
+        cache_dir = (None if args.index_cache == "off"
+                     else os.path.dirname(os.path.abspath(args.genome))
+                     if args.index_cache == "auto" else args.index_cache)
+        report = validate_assembly(
+            read_fasta(args.scaffolds, lazy="auto"),
+            read_fasta(args.genome, lazy="auto"),
+            k=args.seed_kmer, stride=args.stride,
+            junctions=read_agp_junctions(args.agp) if args.agp else None,
+            junction_window=args.junction_window,
+            sample=args.sample, n_jobs=args.jobs or (os.cpu_count() or 1),
+            index_cache_dir=cache_dir)
+        print(json.dumps(report, indent=2, sort_keys=True))
+        return 0
+
+    from telomeri_tpu_torch.sim import PRESETS, SimConfig, simulate, write_dataset
+
+    base = PRESETS[args.preset] if args.preset else SimConfig()
+    fields = {
+        f.name: getattr(args, f.name) if getattr(args, f.name) is not None
+        else getattr(base, f.name)
+        for f in dataclasses.fields(SimConfig)
+    }
+    data = simulate(SimConfig(**fields))
+    write_dataset(data, args.out)
+    log.info("wrote dataset to %s (%d contigs, %d reads, %d+%d paf rows)",
+             args.out, len(data.contigs), len(data.reads),
+             len(data.paf_read_contig), len(data.paf_read_read))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_parser()
-    args, rest = parser.parse_known_args(argv)
-    if args.cmd != "scaffold":
-        return reference_cli.main((["-v"] if args.verbose else []) + [args.cmd, *rest])
-    if rest:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = parser.parse_args(argv)
     setup_logging(args.verbose)
+    if args.cmd != "scaffold":
+        return _host_command(args)
     if not args.graph and not (args.paf_read_contig and args.paf_read_read):
         parser.error("--paf-read-contig and --paf-read-read are required unless "
                      "resuming from --graph")
@@ -98,7 +219,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: torch sees no CUDA device (use --device cpu)")
-    cfg = reference_cli._config_from_args(args)
+    cfg = _config_from_args(args)
     metrics = Metrics()
     mesh = None
     if args.mesh:

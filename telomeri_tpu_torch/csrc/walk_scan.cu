@@ -1,89 +1,210 @@
-// All-Monte-Carlo walk scan for Hopper (sm_90a).
+// All-Monte-Carlo walk scan for Hopper (sm_90a), with the Threefry draw fused in.
 //
 // Replaces the Pallas TPU kernel telomeri_tpu/kernels/walk_vmem.py::_walk_kernel
 // (driven by _vmem_scan / run_walks_mc_vmem), itself the twin of the lax.scan in
-// telomeri_tpu/walk/engine.py::_mc_fast_core. Records are bit-equal to both.
+// telomeri_tpu/walk/engine.py::_mc_fast_core, together with the draw table that
+// feeds both (_stable_bits_table). Records are bit-equal to all of them.
 //
+// Per walk, once: (k0, k1) = threefry2x32(key (0, seed), counters (0, uid)), which
+// is jax.random.fold_in(key(seed), uid) with the uid as its uint32 bit pattern.
 // Per walk and step s (the walk's node is `cur`):
-//   1. fetch row `cur` of the packed table wide (N, 6H) int32:
+//   1. bits   = word s % 2 of threefry2x32(key (k0, k1), counters (2b, 2b + 1)),
+//               b = s / 2: one block serves two steps, and an odd S leaves the
+//               last block's second word unused;
+//   2. fetch row `cur` of the packed table wide (N, 6H) int32:
 //      [nbr | cum | eid | adv | es_bits | os_bits], each block H wide;
-//   2. total  = cum[H-1];
-//   3. r      = (bits[s] & 0x7FFFFFFF) % max(total, 1)        (int32);
-//   4. choice = min(#{j : cum[j] <= r}, H-1);
-//   5. write the step's records: nbr, total, eid, adv, es_bits at `choice`;
-//   6. cur = nbr[choice] if it is >= 0.
+//   3. total  = cum[H-1];
+//   4. r      = (bits & 0x7FFFFFFF) % max(total, 1);
+//   5. choice = min(#{j : cum[j] <= r}, H-1);
+//   6. record nbr, total, eid, adv, es_bits at `choice`;
+//   7. cur = nbr[choice] if it is >= 0.
 // A dead row (total <= 0) gives r = 0, every cum entry <= 0, choice = H-1: a pad
-// slot, nxt = -1, and the walk stays put, exactly as on the TPU. Events (dead row,
-// revisit, anchor hit) are resolved afterwards from the records, in torch
+// slot, nxt = -1, and the walk stays put. Events (dead row, revisit, anchor hit)
+// are resolved afterwards from the records, in torch
 // (telomeri_tpu_torch/walk/engine.py::resolve_mc_events).
 //
-// Design: one warp per walk, a loop over the S steps inside the warp. The H-wide
-// cum block is read coalesced (lane l reads slots l, l+32, ...); __ballot_sync +
-// __popc of (cum <= r) gives the compare-count without a search; lanes 0-3 then
-// read the chosen slot's nbr / eid / adv / es_bits and write one record each, lane
-// 4 writes `total`, and __shfl_sync hands nbr to the whole warp for the next step.
-// The Mosaic gather workarounds of the TPU kernel (take / dyng / loop) have no
-// counterpart here: a warp simply loads the row it needs.
-//
-// Bound: the latency of a dependent row gather per step (the next row's address
-// is the value just read), not bandwidth: per step a walk reads one 4H-byte cum
-// block plus 4 words and writes 20 bytes. The table (40.9 MB for the E. coli
-// preset) stays in device memory and is served mostly from the 50 MB L2; enough
-// warps in flight (8 per block, thousands of blocks) hide the latency.
+// Bound: bytes, and before that the latency of a chain. Nothing here multiplies
+// matrices, and no tile's address is known before the step that reads it (the
+// next row is the value just picked), so there is no work for wgmma or TMA. A
+// walk is S steps in sequence, each two dependent memory round trips: the cum
+// block, then the four picked words, whose address is the count just computed.
+// The only cure for a latency chain is more chains in flight and fewer requests
+// in each:
+//   - a sub-warp of LANES lanes per walk (32 / LANES walks a warp), each lane
+//     loading 16 bytes: with 16 lanes a 64-entry cum block is ONE request, and
+//     twice as many walks are resident as with a warp per walk. With 8 lanes it
+//     is two requests issued back to back and four times the walks: on an H100
+//     that measured 17% faster at H = 64 (49,152 and 2**20 walks x 32 steps),
+//     and 4 lanes slower again, so H = 64 runs 8 lanes and wider rows 16
+//     (16 against 8 was not timed there);
+//   - each lane counts its own entries <= r and a butterfly of __shfl_xor_sync
+//     sums the sub-warp, `total` comes by __shfl_sync from the lane whose load
+//     holds cum[H-1] (no load of its own), and the draw is computed in registers
+//     (20 rounds of 32-bit add / rotate / xor), so no (S, W) bits table is
+//     written or read;
+//   - lanes 0-3 of the sub-warp issue the four picked words in one instruction;
+//   - each of those lanes keeps its record of four steps in registers and stores
+//     16 contiguous bytes a plane (lane 0 also stores `total`), so a 32-byte
+//     sector of the output is written by two stores instead of eight. With
+//     S % 4 != 0 the rows of a plane are not 16-byte aligned and the stores are
+//     scalar.
+// The row's os_bits block is never read. Registers (ptxas, sm_90a, this file),
+// under __launch_bounds__(256, 8) where a lane holds two 16-byte loads of
+// cum and (256, 6) where it holds four: 32 a thread with 8 to 12 bytes spilled,
+// and 40. So H = 64 (8 lanes, two loads) and H = 128 (16 lanes, two loads) keep
+// the SM's full 2048 threads resident, 256 and 128 walks an SM, and H = 256
+// 1536 threads, 96 walks. At 2**20 walks the scan moves about 4 TB/s through L2 (every
+// step reads a 256-byte cum block and four 32-byte sectors for the pick), so
+// there L2 traffic, not the latency chain, is what is left.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kThreads = 256;
 
-__global__ void walk_scan_kernel(const int* __restrict__ wide, int h,
-                                 const int* __restrict__ start,
-                                 const int* __restrict__ bits,  // (S, W) uint32 bit patterns
-                                 int w, int s_max,
-                                 int* __restrict__ out) {  // (5, W, S): nxt, total, eid, adv, es
-  const int walk = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+__device__ __forceinline__ unsigned rotl32(unsigned x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+// Threefry-2x32, 20 rounds, as jax.random's threefry_2x32: key (k0, k1),
+// counters (x0, x1) in, two words out (in place).
+__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1, unsigned& x0,
+                                             unsigned& x1) {
+  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (unsigned)(i + 1);
+  }
+}
+
+__device__ __forceinline__ int count_le(const int4& c, int r) {
+  return (c.x <= r) + (c.y <= r) + (c.z <= r) + (c.w <= r);
+}
+
+// LANES lanes per walk; CH = H / (4 * LANES) 16-byte loads per lane hold the
+// whole cum block in registers. CH == 0: any H % (4 * LANES) == 0, with `total`
+// loaded on its own and the block read in a loop.
+template <int LANES, int CH>
+__global__ void __launch_bounds__(kThreads, CH <= 2 ? 8 : 6)
+walk_scan_kernel(const int* __restrict__ wide, int h, const int* __restrict__ start,
+                 const int* __restrict__ uid, unsigned seed, int w, int s_max,
+                 int* __restrict__ out) {  // (5, W, S): nxt, total, eid, adv, es
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long walk_raw = tid / LANES;
+  const bool live = walk_raw < w;  // a dead sub-warp still takes part in the shuffles
+  const int walk = live ? (int)walk_raw : w - 1;
   const int lane = threadIdx.x & 31;
-  if (walk >= w) return;  // whole warps only: blockDim is a multiple of 32
+  const int sub = lane % LANES;           // lane within the walk's sub-warp
+  const int shift = lane - sub;           // first lane of the sub-warp
   const long long row_stride = 6LL * h;
   const long long plane = (long long)w * s_max;
   // lanes 0..3 own one picked field each: block 0 (nbr), 2 (eid), 3 (adv), 4 (es);
-  // the record plane has the same index, plane 1 is `total` (lane 4)
-  const int field = lane == 0 ? 0 : lane + 1;
+  // the record plane has the same index; plane 1 is `total`, stored by lane 0
+  const int field = sub == 0 ? 0 : sub + 1;
+  const bool picks = sub < 4;
+  const bool vec = (s_max & 3) == 0;
+
+  unsigned k0 = 0u, k1 = (unsigned)uid[walk];
+  threefry2x32(0u, seed, k0, k1);  // fold_in: key (0, seed) over counters (0, uid)
+
   int cur = start[walk];
-  for (int s = 0; s < s_max; ++s) {
-    const int* row = wide + (long long)cur * row_stride;
-    const int* cum = row + h;
-    const int total = __ldg(cum + h - 1);
-    const unsigned b = (unsigned)__ldg(bits + (long long)s * w + walk);
-    const int r = (int)(b & 0x7FFFFFFFu) % max(total, 1);
-    int count = 0;
-    for (int j = lane; j < h; j += 32) {  // h % 32 == 0: every lane takes every turn
-      count += __popc(__ballot_sync(kFullMask, __ldg(cum + j) <= r));
+  for (int s0 = 0; s0 < s_max; s0 += 4) {
+    int rec[4], tot[4];
+    unsigned y0 = 0u, y1 = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = s0 + i;
+      if (s < s_max) {  // uniform over the grid
+        if ((i & 1) == 0) {
+          y0 = (unsigned)s;  // counters (2b, 2b + 1) with 2b = s
+          y1 = (unsigned)s + 1u;
+          threefry2x32(k0, k1, y0, y1);
+        }
+        const unsigned b = (i & 1) ? y1 : y0;
+        const int* row = wide + (long long)cur * row_stride;
+        const int4* cum4 = reinterpret_cast<const int4*>(row + h);
+        int total, count = 0;
+        if constexpr (CH > 0) {
+          int4 c[CH];
+#pragma unroll
+          for (int j = 0; j < CH; ++j) c[j] = __ldg(cum4 + j * LANES + sub);
+          total = __shfl_sync(kFullMask, c[CH - 1].w, shift + LANES - 1);
+          const int r = (int)((b & 0x7FFFFFFFu) % (unsigned)max(total, 1));
+#pragma unroll
+          for (int j = 0; j < CH; ++j) count += count_le(c[j], r);
+        } else {
+          total = __ldg(row + 2 * h - 1);
+          const int r = (int)((b & 0x7FFFFFFFu) % (unsigned)max(total, 1));
+          for (int j = sub; j < h / 4; j += LANES) count += count_le(__ldg(cum4 + j), r);
+        }
+        // sum the sub-warp's lane counts
+#pragma unroll
+        for (int d = LANES / 2; d > 0; d >>= 1) count += __shfl_xor_sync(kFullMask, count, d);
+        const int choice = min(count, h - 1);
+        int v = 0;
+        if (picks) v = __ldg(row + (long long)field * h + choice);
+        const int nxt = __shfl_sync(kFullMask, v, shift);
+        rec[i] = v;
+        tot[i] = total;
+        cur = nxt >= 0 ? nxt : cur;
+      } else {
+        rec[i] = 0;
+        tot[i] = 0;
+      }
     }
-    const int choice = min(count, h - 1);
-    int v = 0;
-    if (lane < 4) v = __ldg(row + (long long)field * h + choice);
-    const int nxt = __shfl_sync(kFullMask, v, 0);
-    const long long o = (long long)walk * s_max + s;
-    if (lane < 4) out[field * plane + o] = v;
-    else if (lane == 4) out[plane + o] = total;
-    cur = nxt >= 0 ? nxt : cur;
+    if (live && picks) {
+      const long long o = (long long)walk * s_max + s0;
+      int* dst = out + field * plane + o;
+      int* dst_total = out + plane + o;
+      if (vec) {  // s0 + 3 < s_max, and o * 4 bytes is 16-byte aligned
+        *reinterpret_cast<int4*>(dst) = make_int4(rec[0], rec[1], rec[2], rec[3]);
+        if (sub == 0) {
+          *reinterpret_cast<int4*>(dst_total) = make_int4(tot[0], tot[1], tot[2], tot[3]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (s0 + i < s_max) {
+            dst[i] = rec[i];
+            if (sub == 0) dst_total[i] = tot[i];
+          }
+        }
+      }
+    }
   }
+}
+
+template <int LANES, int CH>
+int launch(const int* wide, int h, const int* start, const int* uid, unsigned seed, int w,
+           int s_max, int* out, cudaStream_t stream) {
+  const long long blocks = ((long long)w * LANES + kThreads - 1) / kThreads;
+  walk_scan_kernel<LANES, CH><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      wide, h, start, uid, seed, w, s_max, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` without synchronising; returns cudaGetLastError() so the
-// caller can raise on a refused launch. Requires h % 32 == 0.
-extern "C" int telomeri_walk_scan(const int* wide, int h, const int* start,
-                                  const int* bits, int w, int s_max, int* out,
-                                  void* stream) {
+// caller can raise on a refused launch. Requires h % 64 == 0.
+extern "C" int telomeri_walk_scan(const int* wide, int h, const int* start, const int* uid,
+                                  unsigned seed, int w, int s_max, int* out, void* stream) {
   if (w <= 0 || s_max <= 0) return (int)cudaSuccess;
-  if (h <= 0 || h % 32 != 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;  // 8 walks per block
-  const long long blocks = ((long long)w * 32 + threads - 1) / threads;
-  walk_scan_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      wide, h, start, bits, w, s_max, out);
-  return (int)cudaGetLastError();
+  if (h <= 0 || h % 64 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (h == 64) return launch<8, 2>(wide, h, start, uid, seed, w, s_max, out, st);
+  if (h == 128) return launch<16, 2>(wide, h, start, uid, seed, w, s_max, out, st);
+  if (h == 256) return launch<16, 4>(wide, h, start, uid, seed, w, s_max, out, st);
+  return launch<16, 0>(wide, h, start, uid, seed, w, s_max, out, st);
 }

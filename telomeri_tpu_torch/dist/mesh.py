@@ -35,9 +35,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from telomeri_tpu.config import ScaffoldConfig
-from telomeri_tpu.graph.tensorize import GraphTensors
-from telomeri_tpu.walk.plan import WalkPlan
+from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.graph.tensorize import GraphTensors
+from telomeri_tpu_torch.walk.plan import WalkPlan
 from telomeri_tpu_torch.consensus.grouping import ConsensusResult, WalkSummary, walk_consensus
 from telomeri_tpu_torch.walk.engine import (
     GraphDev,

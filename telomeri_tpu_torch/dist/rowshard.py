@@ -31,8 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from telomeri_tpu.graph.tensorize import GraphTensors
-from telomeri_tpu.walk.plan import WalkPlan
+from telomeri_tpu_torch.graph.tensorize import GraphTensors
+from telomeri_tpu_torch.walk.plan import WalkPlan
 from telomeri_tpu_torch.dist.mesh import ShardedWalks, WalkMesh, shard_plan
 from telomeri_tpu_torch.kernels.walk_scan import walk_scan_torch
 from telomeri_tpu_torch.walk.engine import (

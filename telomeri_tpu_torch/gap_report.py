@@ -33,8 +33,8 @@ from collections import Counter
 
 import numpy as np
 
-from telomeri_tpu.config import ScaffoldConfig
-from telomeri_tpu.scaffold.bridge import End, resolve_with_blockers, terminal_end
+from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.scaffold.bridge import End, resolve_with_blockers, terminal_end
 from telomeri_tpu_torch.consensus.coherence import annotate_pair_coherence
 from telomeri_tpu_torch.consensus.evidence import read_diversity_gate
 from telomeri_tpu_torch.consensus.grouping import compress

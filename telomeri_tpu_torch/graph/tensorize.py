@@ -1,21 +1,106 @@
 """Fixed-shape overlap-graph tensorization: the port of telomeri_tpu/graph/tensorize.py.
 
-tensorize is the reference's, unchanged but for where mc_weights comes from:
-the reference imports it from its walk engine, which imports jax. The layout
-(padded CSR rows sorted by (ES desc, dst asc, edge idx asc), hierarchical hub
-rows through virtual nodes, bucketed row padding) is documented there; the
-result is the reference's GraphTensors, host numpy.
+EdgeSoA -> a dense (N, K) padded CSR, so that each walk step is one dense row
+fetch. GraphTensors and tensorize are the reference's host numpy code, line for
+line; the result is host numpy.
+
+Layout:
+  - N = 2 * n_seqs oriented nodes (see io/geometry.py for the node encoding), plus
+    VIRTUAL overflow nodes for degree-skewed rows (below), padded up to a bucketed row
+    count (utils/shapes.py) with unreachable empty rows so the compiled walk program is
+    reused across datasets.
+  - Row r of each (N, K) table lists node r's out-edges, sorted by (ES desc, dst asc,
+    edge-index asc) — the sort IS the greedy tie-break rule (documented, deterministic).
+  - The row width K is DATA-DEPENDENT: the observed max out-degree rounded up to a
+    multiple of 8, capped at cfg.max_degree (per-step walk gather traffic is O(K), so
+    narrower tables are faster).
+  - Pad entries have nbr == -1, scores 0, adv 0.
+  - Anchor test is id-arithmetic: node v is an anchor iff v < 2 * n_anchors (contigs are
+    sequence ids [0, n_anchors)).
+
+Degree skew — hierarchical rows (SURVEY.md §7 "ragged -> fixed shapes"; round-1 verdict
+item 3: top-K truncation silently biased MC sampling and could delete the correct bridge
+path on real repeat-dense graphs). A node with out-degree d > K keeps its top K-M edges
+(by the row sort) in its base row and chains the remaining d-(K-M) edges through M
+VIRTUAL child nodes, recursively (capacity grows by ~K per level; NO edge is ever
+dropped). Child slots carry:
+  nbr = child node id        eid = -2 (hop marker; stripped by scaffold.extract_path)
+  adv = 0, es = 0            (a hop adds nothing to path_len / score_sum)
+  os  = max subtree OS       (greedy-OS argmax descends toward the global max)
+  MC weight = subtree weight sum, so P(leaf edge) = w_leaf / row_total EXACTLY as in a
+  flat row (hierarchical inverse-CDF decomposition with integer weights).
+Chunks are split in ES order, so base rows stay ES-desc sorted and greedy-ES
+(first-valid-slot) still finds the best edge first. Virtual ids live in
+[2*n_seqs, 2*n_seqs + n_virtual) — never anchors, never stitched (stripped from paths).
+Semantics vs a flat row differ only when a walk REVISITS a hub region: MC's cycle kill
+can fire one step later (on the leaf draw), and greedy rerouting compares within one
+subtree instead of across the whole row; both are documented, deterministic, and
+mirrored exactly by the scalar oracle (it walks the same tensorized rows).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 
-from telomeri_tpu.config import ScaffoldConfig
-from telomeri_tpu.graph.tensorize import GraphTensors
-from telomeri_tpu.io.geometry import EdgeSoA
-from telomeri_tpu.utils.shapes import bucket_len
-from telomeri_tpu_torch.walk.engine import mc_weights
+from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.io.geometry import EdgeSoA
+from telomeri_tpu_torch.utils.shapes import bucket_len
+
+
+@dataclass
+class GraphTensors:
+    """Padded-CSR overlap graph (host numpy; device_put by callers).
+
+    nbr/es/os_/adv/eid: (N, K) per-node out-edge tables (see module docstring).
+    deg: (N,) int32 occupied base-row slots (= true out-degree for non-hub rows).
+    seq_len: (n_seqs,) int32 sequence lengths (for diagnostics; stitching re-reads host seqs).
+    n_anchors: number of anchor sequences (contigs).
+    """
+
+    nbr: np.ndarray
+    es: np.ndarray
+    os_: np.ndarray
+    adv: np.ndarray
+    eid: np.ndarray
+    deg: np.ndarray
+    seq_len: np.ndarray
+    n_anchors: int
+    n_truncated_edges: int = 0   # always 0 since round 2 (hierarchical rows)
+    stats: dict = field(default_factory=dict)
+    # flat per-edge attribute arrays (length n_edges), used by the walk engine to
+    # reconstruct path scores/advances post-scan from chosen edge ids (one (W, S)
+    # gather instead of per-step (W, K) gathers — see walk/engine.py)
+    edge_es: np.ndarray = None
+    edge_adv: np.ndarray = None
+    # static per-row Monte-Carlo sampling structure (see walk/engine.py mc_weights):
+    # cumw[v, j] = sum of integer weights of row v's slots 0..j (row total is the
+    # last column; child slots weigh their whole subtree). Static because MC samples
+    # the FULL row and kills on revisit (cycle kill), so the per-step distribution
+    # never changes.
+    cumw: np.ndarray = None      # (N, K) int32
+    # (n_seqs,) bool: split-mapped (chimera-suspect) sequences
+    # (io/geometry.py split_mapped; consumed by the cut-read gate). None when
+    # loaded from a pre-round-4 artifact — the gate then falls back to treating
+    # every cut read as suspect (conservative).
+    split_read: np.ndarray = None
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nbr.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.nbr.shape[1]
+
+    @property
+    def virtual_base(self) -> int:
+        """Smallest virtual node id; path entries >= this are hierarchy hops."""
+        return 2 * len(self.seq_len)
+
+    def anchor_mask(self) -> np.ndarray:
+        return np.arange(self.n_nodes, dtype=np.int32) < 2 * self.n_anchors
 
 
 def tensorize(
@@ -38,6 +123,8 @@ def tensorize(
     row_start = np.zeros(n_nodes + 1, dtype=np.int64)
     np.cumsum(deg_full, out=row_start[1:])
     rank = np.arange(len(src), dtype=np.int64) - row_start[src]
+
+    from telomeri_tpu_torch.walk.engine import mc_weights   # engine imports this module
 
     ew = mc_weights(edges.es).astype(np.int64)   # per-edge MC weights
 

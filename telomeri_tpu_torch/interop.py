@@ -1,14 +1,61 @@
-"""Carry the reference's device tables into the port (the analogue of loading
-weights): the JAX package's packed walk table, walk plan and walk records arrive
-as numpy arrays (np.asarray of its jax arrays) and become this package's tensors.
+"""Carry the reference's objects into the port (the analogue of loading weights).
+
+The two packages define the same classes twice, so an object of the JAX package
+is not an instance of this package's class. Each converter reads its argument
+through its fields, as numpy arrays and plain values (np.asarray of a jax array),
+and never imports the reference: the JAX package's packed walk table, walk plan
+and walk records become this package's tensors, and its host dataclasses
+(ScaffoldConfig, EdgeSoA, GraphTensors, WalkPlan, PafRecords) become this
+package's dataclasses of the same name.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.graph.tensorize import GraphTensors
+from telomeri_tpu_torch.io.geometry import EdgeSoA
+from telomeri_tpu_torch.io.paf import PafRecords
 from telomeri_tpu_torch.walk.engine import GraphDev, PlanDev, WalkResult
+from telomeri_tpu_torch.walk.plan import WalkPlan
+
+
+def _from_fields(cls, obj):
+    """cls(**fields of obj), each numpy field copied; obj has cls's field names."""
+    def value(v):
+        if v is None or isinstance(v, (bool, int, float, str)):
+            return v
+        if isinstance(v, dict):
+            return {k: value(x) for k, x in v.items()}
+        if isinstance(v, (tuple, list)):
+            return type(v)(value(x) for x in v)
+        return np.array(v)
+    return cls(**{f.name: value(getattr(obj, f.name)) for f in dataclasses.fields(cls)})
+
+
+def config_from_reference(cfg) -> ScaffoldConfig:
+    """The reference's ScaffoldConfig as this package's (same fields, same JSON)."""
+    return _from_fields(ScaffoldConfig, cfg)
+
+
+def edges_from_reference(edges) -> EdgeSoA:
+    return _from_fields(EdgeSoA, edges)
+
+
+def graph_from_reference(graph) -> GraphTensors:
+    return _from_fields(GraphTensors, graph)
+
+
+def plan_from_reference(plan) -> WalkPlan:
+    return _from_fields(WalkPlan, plan)
+
+
+def paf_from_reference(paf) -> PafRecords:
+    return _from_fields(PafRecords, paf)
 
 
 def graph_dev_from_numpy(wide, device="cpu") -> GraphDev:

@@ -13,13 +13,17 @@ streams out five per-step records, each (W, S) int32:
 Per step: r = (bits & 0x7FFFFFFF) % max(total, 1) in int32, slot =
 min(#{j : cum[j] <= r}, H-1), and the walk moves to nxt when nxt >= 0. It is
 historyless (MC draws never consult the path); walk/engine.py resolve_mc_events
-finds each walk's first event from the records afterwards.
+finds each walk's first event from the records afterwards. `bits` of step s of
+walk `uid` is word s % 2 of Threefry-2x32 block s // 2 under the key
+fold_in(key(seed), uid) (walk/engine.py stable_bits_table).
 
-  - walk_scan_torch  plain torch version (the lax.scan of the reference's
-                     _mc_fast_core, one row gather per step)
-  - walk_scan_cuda   the hand-written kernel (csrc/walk_scan.cu): one warp per
-                     walk, bound by the latency of the dependent row gather
-  - walk_scan        dispatch on the tensors' device
+  - walk_scan_torch  plain torch version over a given (S, W) bits table (the
+                     lax.scan of the reference's _mc_fast_core, one row fetch
+                     per step); dist/rowshard.py runs it with a collective fetch
+  - walk_scan_cuda   the hand-written kernel (csrc/walk_scan.cu): a sub-warp per
+                     walk, the Threefry draw computed in registers, so no bits
+                     table exists on its path
+  - walk_scan        (wide, start, uid, seed, S): dispatch on the tensors' device
 
 Records come back as one (5, W, S) int32 tensor in the order above.
 """
@@ -34,20 +38,20 @@ from telomeri_tpu_torch.kernels import build
 launches = {"walk_scan": 0}
 
 
-def _check(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
-           max_steps: int) -> tuple[int, int]:
+def _check(wide: torch.Tensor, start: torch.Tensor, per_walk: torch.Tensor, name: str,
+           shape: tuple) -> tuple[int, int]:
+    """(H, W) of a scan over `wide` from `start`, with the draw input `per_walk`
+    (the bits table or the uids) of the given shape, all int32 on one device."""
     if wide.dim() != 2 or wide.shape[1] % 6 or wide.dtype != torch.int32:
         raise ValueError(f"wide must be (N, 6H) int32, got {tuple(wide.shape)} {wide.dtype}")
-    h = wide.shape[1] // 6
-    w = start.shape[0]
     if start.dim() != 1 or start.dtype != torch.int32:
         raise ValueError("start must be (W,) int32")
-    if tuple(bits.shape) != (max_steps, w) or bits.dtype != torch.int32:
-        raise ValueError(f"bits must be ({max_steps}, {w}) int32, got "
-                         f"{tuple(bits.shape)} {bits.dtype}")
-    if not (wide.device == start.device == bits.device):
-        raise ValueError("wide, start and bits must lie on one device")
-    return h, w
+    if tuple(per_walk.shape) != shape or per_walk.dtype != torch.int32:
+        raise ValueError(f"{name} must be {shape} int32, got "
+                         f"{tuple(per_walk.shape)} {per_walk.dtype}")
+    if not (wide.device == start.device == per_walk.device):
+        raise ValueError(f"wide, start and {name} must lie on one device")
+    return wide.shape[1] // 6, start.shape[0]
 
 
 def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
@@ -58,7 +62,7 @@ def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
     fetch(cur) -> (W, 6H) rows of the walks' current nodes; the default is the
     local gather wide[cur]. dist/rowshard.py passes a collective fetch, with
     `wide` then this rank's shard of the table."""
-    h, w = _check(wide, start, bits, max_steps)
+    h, w = _check(wide, start, bits, "bits", (max_steps, start.shape[0]))
     if fetch is None:
         fetch = lambda cur: wide[cur.long()]
     out = torch.empty((5, w, max_steps), dtype=torch.int32, device=wide.device)
@@ -81,34 +85,41 @@ def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
     return out
 
 
-def walk_scan_cuda(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
+def walk_scan_cuda(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, seed: int,
                    max_steps: int) -> torch.Tensor:
     """The CUDA kernel on CUDA tensors; launches on the current stream and
-    raises if the launch fails. Returns what walk_scan_torch does."""
-    h, w = _check(wide, start, bits, max_steps)
+    raises if the launch fails. Returns what walk_scan_torch returns over
+    stable_bits_table(seed, uid, max_steps)."""
+    h, w = _check(wide, start, uid, "uid", tuple(start.shape))
     if wide.device.type != "cuda":
         raise ValueError("walk_scan_cuda needs CUDA tensors")
-    if h % 32:
-        raise ValueError(f"the kernel needs H % 32 == 0, got H={h}")
-    wide, start, bits = (t.contiguous() for t in (wide, start, bits))
+    if h % 64:
+        raise ValueError(f"the kernel needs H % 64 == 0, got H={h}")
+    wide, start, uid = (t.contiguous() for t in (wide, start, uid))
     lib = build.load()
     with torch.cuda.device(wide.device):
         out = torch.empty((5, w, max_steps), dtype=torch.int32, device=wide.device)
+        if w == 0 or max_steps == 0:
+            return out   # nothing to launch
         rc = lib.telomeri_walk_scan(
-            wide.data_ptr(), h, start.data_ptr(), bits.data_ptr(), w, max_steps,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            wide.data_ptr(), h, start.data_ptr(), uid.data_ptr(), int(seed) & 0xFFFFFFFF,
+            w, max_steps, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         build.check(rc, "walk_scan")
     launches["walk_scan"] += 1
     return out
 
 
-def walk_scan(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
+def walk_scan(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, seed: int,
               max_steps: int) -> torch.Tensor:
-    """Dispatch on where the tensors lie: the plain version for CPU tensors, the
-    kernel for CUDA tensors (it raises rather than fall back)."""
+    """Dispatch on where the tensors lie: the draw table and the plain version
+    for CPU tensors, the kernel (which draws for itself) for CUDA tensors; it
+    raises rather than fall back."""
     kind = wide.device.type
     if kind == "cpu":
-        return walk_scan_torch(wide, start, bits, max_steps)
+        from telomeri_tpu_torch.walk.engine import stable_bits_table   # engine imports this module
+
+        _check(wide, start, uid, "uid", tuple(start.shape))
+        return walk_scan_torch(wide, start, stable_bits_table(seed, uid, max_steps), max_steps)
     if kind == "cuda":
-        return walk_scan_cuda(wide, start, bits, max_steps)
+        return walk_scan_cuda(wide, start, uid, seed, max_steps)
     raise ValueError(f"no walk-scan path for device {wide.device}")

@@ -14,9 +14,9 @@ table beyond ~75% of one device's memory, row-sharded (_resolve_placement); the
 scaffolds are the same as on one device. Each host writes its output files
 once, from local rank 0.
 
-The score, walk and rescue dispatches are timed by the reference's
-DispatchWatch (telomeri_tpu/utils/watchdog.py, no jax) under its keys, so
-metrics.json carries the same "dispatches" record; on a card each watched body
+The score, walk and rescue dispatches are timed by DispatchWatch
+(utils/watchdog.py) under the reference's keys, so metrics.json carries the
+same "dispatches" record; on a card each watched body
 synchronizes the device before the record closes.
 """
 
@@ -30,16 +30,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from telomeri_tpu.config import ScaffoldConfig  # re-exported: callers of the port take it from here
-from telomeri_tpu.graph.tensorize import GraphTensors
-from telomeri_tpu.io.fasta import SequenceSet, read_fasta, write_fasta
-from telomeri_tpu.io.geometry import EdgeSoA, split_evidence_mask, split_mapped
-from telomeri_tpu.io.paf import PafRecords, parse_paf
-from telomeri_tpu.scaffold.bridge import resolve_with_blockers
-from telomeri_tpu.scaffold.stitch import Scaffold, Stitcher, emit_scaffolds, extract_path
-from telomeri_tpu.utils.logging import Metrics, log
-from telomeri_tpu.utils.watchdog import DispatchWatch
-from telomeri_tpu.walk.plan import WalkPlan, plan_walks
+from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.graph.tensorize import GraphTensors
+from telomeri_tpu_torch.io.fasta import SequenceSet, read_fasta, write_fasta
+from telomeri_tpu_torch.io.geometry import EdgeSoA, split_evidence_mask, split_mapped
+from telomeri_tpu_torch.io.paf import PafRecords, parse_paf
+from telomeri_tpu_torch.scaffold.bridge import resolve_with_blockers
+from telomeri_tpu_torch.scaffold.stitch import Scaffold, Stitcher, emit_scaffolds, extract_path
+from telomeri_tpu_torch.utils.logging import Metrics, log
+from telomeri_tpu_torch.utils.watchdog import DispatchWatch
+from telomeri_tpu_torch.walk.plan import WalkPlan, plan_walks
 from telomeri_tpu_torch.consensus.evidence import read_diversity_gate
 from telomeri_tpu_torch.consensus.grouping import compress, walk_consensus
 from telomeri_tpu_torch.dist.mesh import (
@@ -112,13 +112,13 @@ def load_inputs(contigs_path: str, reads_path: str, paf_rc_path, paf_rr_path,
         paf = PafRecords.concatenate(
             [parse_paf(p, name_index) for p in as_list(paf_rc_path)]
             + [parse_paf(p, name_index) for p in as_list(paf_rr_path)])
-    from telomeri_tpu.native.paf_native import available as _native_ok
+    from telomeri_tpu_torch.native.paf_native import available as _native_ok
 
     backend = "native" if _native_ok() else "python"
     metrics.set("parser_backend", backend)
     if backend == "python":
         log.info("native parser library not built (python -m "
-                 "telomeri_tpu.native.build); using the Python parsers")
+                 "telomeri_tpu_torch.native.build); using the Python parsers")
     return contigs, reads, paf
 
 
@@ -389,7 +389,7 @@ def run_pipeline(
 
     # junction polish: plurality re-call of fill bases over spanning reads
     if cfg.polish:
-        from telomeri_tpu.scaffold.polish import polish_scaffolds
+        from telomeri_tpu_torch.scaffold.polish import polish_scaffolds
 
         junction_reads = {tuple(r["pair"]): r["span_reads"]
                           for r in bridges if "span_reads" in r}
@@ -405,7 +405,7 @@ def run_pipeline(
         metrics.set("polish", agg)
     metrics.set("n_scaffolds", len(scaffolds))
     metrics.set("scaffold_lengths", [int(len(s.seq)) for s in scaffolds])
-    from telomeri_tpu.utils.stats import scaffold_vs_contig_stats
+    from telomeri_tpu_torch.utils.stats import scaffold_vs_contig_stats
 
     metrics.set("assembly", scaffold_vs_contig_stats(
         [len(s.seq) for s in scaffolds], list(contigs.lengths)))
@@ -414,7 +414,7 @@ def run_pipeline(
         with metrics.stage("write_fasta"):
             write_fasta(out_path, [s.name for s in scaffolds], [s.seq for s in scaffolds])
     if agp_path and writes:
-        from telomeri_tpu.scaffold.stitch import write_agp
+        from telomeri_tpu_torch.scaffold.stitch import write_agp
 
         with metrics.stage("write_agp"):
             write_agp(agp_path, scaffolds, contigs, reads)

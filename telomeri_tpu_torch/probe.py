@@ -56,7 +56,7 @@ def _sync(device: torch.device) -> None:
 
 def pipeline_runs(data_dir: str, device, runs: int = 3) -> dict:
     """`runs` timed run_pipeline calls after one untimed warm-up call."""
-    from telomeri_tpu.utils.logging import Metrics
+    from telomeri_tpu_torch.utils.logging import Metrics
     from telomeri_tpu_torch.pipeline import ScaffoldConfig, run_pipeline
 
     device = torch.device(device)

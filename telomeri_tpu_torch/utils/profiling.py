@@ -14,7 +14,7 @@ from contextlib import contextmanager, nullcontext
 
 import torch
 
-from telomeri_tpu.utils.logging import log
+from telomeri_tpu_torch.utils.logging import log
 
 
 @contextmanager

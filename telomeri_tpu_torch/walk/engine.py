@@ -15,9 +15,12 @@ event from the per-step records. Greedy and mixed sections run _kind_core, a
 Python loop over steps in torch.
 
 RNG: step s of walk `uid` draws lane s % 2 of Threefry-2x32 block s // 2 on the
-key fold_in(key(seed), uid), exactly as jax.random does (stable_bits_table). The
-uint32 arithmetic runs on int64 tensors masked to 32 bits; torch.Generator is
-not used, because it does not produce this stream.
+key fold_in(key(seed), uid), exactly as jax.random does. On a card the MC
+section's kernel computes the draw in registers; stable_bits_table is the same
+stream as a (S, W) table in torch, for CPU tensors, mixed sections, the
+row-sharded scan and the oracle. Its uint32 arithmetic runs on int64 tensors
+masked to 32 bits; torch.Generator is not used, because it does not produce
+this stream.
 
 Dtypes follow the reference with JAX x64 off: node ids, uids, records and
 sentinels are int32, score_sum is float32. score_sum is summed over steps in
@@ -39,9 +42,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from telomeri_tpu.config import ScaffoldConfig
-from telomeri_tpu.graph.tensorize import GraphTensors
-from telomeri_tpu.walk.plan import MODE_GREEDY_OS, MODE_MC, WalkPlan
+from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.graph.tensorize import GraphTensors
+from telomeri_tpu_torch.walk.plan import MODE_GREEDY_OS, MODE_MC, WalkPlan
 from telomeri_tpu_torch.kernels.walk_scan import walk_scan
 
 _M32 = 0xFFFFFFFF
@@ -221,8 +224,7 @@ def run_walks_mc(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int,
                  max_steps: int) -> WalkResult:
     """All-MC section (the reference's _run_walks_mc_fast / _mc_fast_core): the
     historyless scan, then post-hoc event resolution."""
-    bits = stable_bits_table(seed, p.uid, max_steps)
-    nxt, tot, eid, adv, es = walk_scan(gd.wide, p.start, bits, max_steps)
+    nxt, tot, eid, adv, es = walk_scan(gd.wide, p.start, p.uid, seed, max_steps)
     return resolve_mc_events(p, nxt, tot, eid, adv, es,
                              n_nodes=int(gd.wide.shape[0]), n_anchors=n_anchors,
                              max_steps=max_steps)

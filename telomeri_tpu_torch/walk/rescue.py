@@ -5,9 +5,7 @@ rescue_walks_per_end MC walks each through the SAME grouping and cut-read gate
 as the base round (read_diverse support); rescue bridges are conflict-resolved
 INTO the accepted set, so a round only adds bridges on free ends. On one device
 or, given a mesh, sharded over its ranks in either graph placement (dist/).
-
-free_walkable_ends and build_rescue_plan are copies of the reference's: its
-module imports its consensus grouping, which imports jax.
+free_walkable_ends and build_rescue_plan are copies of the reference's.
 """
 
 from __future__ import annotations
@@ -15,12 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from telomeri_tpu.config import ScaffoldConfig
-from telomeri_tpu.graph.tensorize import GraphTensors
-from telomeri_tpu.scaffold.bridge import Bridge, resolve_with_blockers
-from telomeri_tpu.scaffold.stitch import extract_path
-from telomeri_tpu.utils.logging import log
-from telomeri_tpu.walk.plan import MODE_MC, WalkPlan
+from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.graph.tensorize import GraphTensors
+from telomeri_tpu_torch.scaffold.bridge import Bridge, resolve_with_blockers
+from telomeri_tpu_torch.scaffold.stitch import extract_path
+from telomeri_tpu_torch.utils.logging import log
+from telomeri_tpu_torch.walk.plan import MODE_MC, WalkPlan
 from telomeri_tpu_torch.consensus.evidence import read_diversity_gate
 from telomeri_tpu_torch.consensus.grouping import compress, walk_consensus
 from telomeri_tpu_torch.dist.mesh import (

@@ -11,9 +11,11 @@ import os
 import numpy as np
 import pytest
 
-from telomeri_tpu.config import ScaffoldConfig
+from telomeri_tpu.config import ScaffoldConfig as RefConfig
 from telomeri_tpu.pipeline import run_pipeline as ref_run_pipeline
+from telomeri_tpu_torch import interop
 from telomeri_tpu_torch.cli.main import main as cli_main
+from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.io.artifacts import load_graph, load_walks, save_graph, save_walks
 from telomeri_tpu_torch.pipeline import build_graph, load_inputs, run_pipeline
 from telomeri_tpu_torch.walk.engine import WalkResult
@@ -53,8 +55,8 @@ def test_graph_artifact_roundtrip(toy_built, tmp_path):
 
 
 def test_walks_artifact_roundtrip(toy_built, tmp_path):
-    from telomeri_tpu.walk.plan import plan_walks
     from telomeri_tpu_torch.walk.engine import run_walks_host
+    from telomeri_tpu_torch.walk.plan import plan_walks
 
     _, graph = toy_built
     plan = plan_walks(graph, CFG)
@@ -93,11 +95,12 @@ def test_resume_from_artifacts_identical_output(toy_dataset_dir, tmp_path):
 @pytest.mark.parametrize("writer", ["reference", "port"])
 def test_artifacts_resume_across_packages(toy_dataset_dir, tmp_path, writer):
     """Written by one package, resumed by the other: the writer's FASTA."""
-    cfg = ScaffoldConfig(mc_walks_per_end=50, max_steps=32, rescue_walks_per_end=200)
+    cfg = RefConfig(mc_walks_per_end=50, max_steps=32, rescue_walks_per_end=200)
     args = _paths(toy_dataset_dir)
     gp, wp = str(tmp_path / "g.npz"), str(tmp_path / "w.npz")
     out0 = str(tmp_path / "direct.fa")
-    port_run = lambda *a, **kw: run_pipeline(*a, **kw, device="cpu")
+    port_run = lambda *a, **kw: run_pipeline(
+        *a[:-1], interop.config_from_reference(a[-1]), **kw, device="cpu")
     write, resume = ((ref_run_pipeline, port_run) if writer == "reference"
                      else (port_run, ref_run_pipeline))
     write(*args, out0, cfg, save_graph_path=gp, save_walks_path=wp)
@@ -113,10 +116,11 @@ def test_walks_artifacts_of_both_packages_equal_above_32_steps(tmp_path_factory,
     packages' walks.npz hold the same arrays, float32 compared by their bits."""
     from test_torch_scenarios import SPANNING_SIM, write_sim
 
-    cfg = ScaffoldConfig(mc_walks_per_end=40, max_steps=48)
+    cfg = RefConfig(mc_walks_per_end=40, max_steps=48)
     args = _paths(write_sim(tmp_path_factory, "spanning", SPANNING_SIM))
     ref_run_pipeline(*args, None, cfg, save_walks_path=str(tmp_path / "ref.npz"))
-    run_pipeline(*args, None, cfg, save_walks_path=str(tmp_path / "port.npz"), device="cpu")
+    run_pipeline(*args, None, interop.config_from_reference(cfg),
+                 save_walks_path=str(tmp_path / "port.npz"), device="cpu")
     with np.load(tmp_path / "ref.npz") as a, np.load(tmp_path / "port.npz") as b:
         assert sorted(a.files) == sorted(b.files)
         assert (a["walk_steps"] > cfg.max_steps // 2).any()   # sums that span both windows

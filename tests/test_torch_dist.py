@@ -20,11 +20,14 @@ import numpy as np
 import pytest
 import torch
 
-from telomeri_tpu.config import ScaffoldConfig
-from telomeri_tpu.walk.plan import plan_walks
+from telomeri_tpu.config import ScaffoldConfig as RefConfig
+from telomeri_tpu.graph.tensorize import GraphTensors as RefGraph
+from telomeri_tpu.walk.plan import WalkPlan as RefPlan
+from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.consensus.grouping import ConsensusResult, compress
 from telomeri_tpu_torch.dist import mesh as tmesh
 from telomeri_tpu_torch.walk.engine import WalkResult
+from telomeri_tpu_torch.walk.plan import plan_walks
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 INPUTS = ("contigs.fa", "reads.fa", "read2contig.paf", "read2read.paf")
@@ -42,10 +45,10 @@ rank, world, store, spec = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], json
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from telomeri_tpu.walk.plan import plan_walks
 from telomeri_tpu_torch.dist.mesh import (fetch_walk_rows, init_distributed, make_walk_mesh,
                                           run_walks_distributed, shutdown_distributed)
 from telomeri_tpu_torch.pipeline import ScaffoldConfig, build_graph, load_inputs, run_pipeline
+from telomeri_tpu_torch.walk.plan import plan_walks
 from telomeri_tpu_torch.walk.rescue import run_rescue_round
 
 init_distributed("cpu", init_method="file://" + store, rank=rank, world_size=world)
@@ -69,6 +72,7 @@ for name, (d, c) in spec["pipelines"].items():   # "auto" resolves to replicated
         **c, graph_placement="auto" if pl == "replicated" else pl), mesh=mesh)
     with open(f"{out}/{name}_rank{rank}.json", "w") as f:
         json.dump(res.metrics.as_dict()["metrics"], f)
+torch.distributed.barrier()   # the ranks leave together: no peer's sockets close under another
 shutdown_distributed()
 print("WORKER_OK", flush=True)
 """
@@ -125,6 +129,15 @@ def read_bytes(path: str) -> bytes:
         return f.read()
 
 
+def to_reference(cls, obj):
+    """The port's dataclass `obj` as the reference's class of the same fields."""
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
+def reference_args(graph, plan, cfg):
+    return to_reference(RefGraph, graph), to_reference(RefPlan, plan), to_reference(RefConfig, cfg)
+
+
 def assert_records_equal(want, got):
     """Every field equal; score_sum by its float32 bits."""
     for f in WalkResult._fields:
@@ -174,7 +187,7 @@ def test_walk_records_equal_single_device_and_reference_mesh(world, toy_graph):
     cfg = ScaffoldConfig(**CFG)
     plan = plan_walks(toy_graph, cfg, n_shards=n)
     one = run_walks_host(toy_graph, plan, cfg, "cpu").to_numpy()
-    ref, _ = run_walks_distributed(toy_graph, plan, cfg, make_walk_mesh(n))
+    ref, _ = run_walks_distributed(*reference_args(toy_graph, plan, cfg), make_walk_mesh(n))
     for r in range(n):
         rec, _, rows = load_rank(out, r)
         assert_records_equal(one, rec)
@@ -192,7 +205,7 @@ def test_consensus_equals_reference_mesh(world, toy_graph):
     n, out = world
     cfg = ScaffoldConfig(**CFG)
     plan = plan_walks(toy_graph, cfg, n_shards=n)
-    _, ref = run_walks_distributed(toy_graph, plan, cfg, make_walk_mesh(n))
+    _, ref = run_walks_distributed(*reference_args(toy_graph, plan, cfg), make_walk_mesh(n))
     want = ref_compress(ref)
     for r in range(n):
         _, cons, _ = load_rank(out, r)
@@ -220,7 +233,7 @@ def reference_toy_run(toy_dataset_dir, tmp_path_factory):
 
     out = str(tmp_path_factory.mktemp("ref_toy") / "ref.fa")
     res = ref_run_pipeline(*[os.path.join(toy_dataset_dir, f) for f in INPUTS], out,
-                           ScaffoldConfig(**PIPE_CFG))
+                           RefConfig(**PIPE_CFG))
     return read_bytes(out), res.metrics.as_dict()["metrics"]
 
 

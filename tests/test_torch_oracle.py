@@ -12,6 +12,7 @@ from test_walk import random_graph
 from telomeri_tpu.config import ScaffoldConfig
 from telomeri_tpu.walk import oracle as ref_oracle
 from telomeri_tpu.walk.plan import MODE_GREEDY_ES, MODE_GREEDY_OS, MODE_MC, plan_walks
+from telomeri_tpu_torch import interop
 from telomeri_tpu_torch.walk import engine
 from telomeri_tpu_torch.walk.oracle import (
     OracleWalk,
@@ -44,11 +45,13 @@ def test_engine_matches_torch_oracle(rng, mode):
     plan = plan_walks(g, cfg)
     sel = np.flatnonzero(plan.active & (plan.mode == mode))[:40]
     assert len(sel)
-    r = engine.run_walks(engine.graph_to_device(g, "cpu"), engine.plan_to_device(plan, "cpu"),
+    g_port = interop.graph_from_reference(g)
+    r = engine.run_walks(engine.graph_to_device(g_port, "cpu"),
+                         engine.plan_to_device(interop.plan_from_reference(plan), "cpu"),
                          11, n_anchors=g.n_anchors, max_steps=10).to_numpy()
     choice = torch_choice_fn(11, 10)
     for i in sel:
-        o = walk_oracle(g, int(plan.start[i]), int(plan.first_edge[i]), mode,
+        o = walk_oracle(g_port, int(plan.start[i]), int(plan.first_edge[i]), mode,
                         int(plan.uid[i]), 10, choice)
         assert isinstance(o, OracleWalk)
         assert list(r.nodes[i][:o.steps + 1]) == o.nodes, f"walk {i}"
@@ -64,8 +67,9 @@ def test_oracle_without_cumw_matches_reference(rng):
     g = dataclasses.replace(random_graph(rng), cumw=None)
     plan = plan_walks(g, ScaffoldConfig(mc_walks_per_end=4, max_steps=10))
     for i in np.flatnonzero(plan.active & (plan.mode == MODE_MC))[:20]:
-        args = (g, int(plan.start[i]), -1, MODE_MC, int(plan.uid[i]), 10)
-        assert walk_oracle(*args, torch_choice_fn(3, 10)) == \
-            ref_oracle.walk_oracle(*args, ref_oracle.jax_choice_fn(3, 10))
-    fast = walk_oracle(g, int(plan.start[0]), -1, MODE_MC, 0, 10, fast_choice_fn(3))
+        args = (int(plan.start[i]), -1, MODE_MC, int(plan.uid[i]), 10)
+        got = walk_oracle(interop.graph_from_reference(g), *args, torch_choice_fn(3, 10))
+        want = ref_oracle.walk_oracle(g, *args, ref_oracle.jax_choice_fn(3, 10))
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    fast = walk_oracle(interop.graph_from_reference(g), int(plan.start[0]), -1, MODE_MC, 0, 10, fast_choice_fn(3))
     assert fast.steps <= 10 and fast.nodes[0] == int(plan.start[0])

@@ -23,16 +23,17 @@ from test_torch_dist import (
     load_rank,
     read_bytes,
     read_json,
+    reference_args,
     run_world,
 )
 
-from telomeri_tpu.config import ScaffoldConfig
-from telomeri_tpu.walk.plan import plan_walks
 from telomeri_tpu_torch import pipeline as tpipe
+from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.consensus.grouping import compress
 from telomeri_tpu_torch.dist.mesh import WalkMesh
 from telomeri_tpu_torch.dist.rowshard import run_walks_rowsharded, shard_graph_rows
 from telomeri_tpu_torch.walk import engine
+from telomeri_tpu_torch.walk.plan import plan_walks
 
 CPU = torch.device("cpu")
 LONG_CFG = dict(CFG, max_steps=48)
@@ -66,7 +67,8 @@ def test_rowsharded_records_equal_replicated_and_reference(world, toy_graph):
     cfg = ScaffoldConfig(**CFG)
     plan = plan_walks(toy_graph, cfg, n_shards=n)
     one = engine.run_walks_host(toy_graph, plan, cfg, "cpu").to_numpy()
-    ref = ref_rowsharded(toy_graph, plan, cfg.mc_seed, n_anchors=toy_graph.n_anchors,
+    ref_graph, ref_plan, _ = reference_args(toy_graph, plan, cfg)
+    ref = ref_rowsharded(ref_graph, ref_plan, cfg.mc_seed, n_anchors=toy_graph.n_anchors,
                          max_steps=cfg.max_steps, mesh=make_walk_mesh(n)).to_numpy()
     for r in range(n):
         rec, _, _ = load_rank(out, r)
@@ -94,7 +96,8 @@ def test_rowsharded_world_of_2_above_32_steps(tmp_path_factory):
     plan = plan_walks(graph, cfg, n_shards=2)
     one = engine.run_walks_host(graph, plan, cfg, "cpu").to_numpy()
     assert (one.steps > cfg.max_steps // 2).any()   # sums that span both windows
-    ref = ref_rowsharded(graph, plan, cfg.mc_seed, n_anchors=graph.n_anchors,
+    ref_graph, ref_plan, _ = reference_args(graph, plan, cfg)
+    ref = ref_rowsharded(ref_graph, ref_plan, cfg.mc_seed, n_anchors=graph.n_anchors,
                          max_steps=cfg.max_steps, mesh=make_walk_mesh(2)).to_numpy()
     new, paths, blocked = run_rescue_round(graph, rcfg, [], 0, device="cpu")
     for r in range(2):
@@ -183,7 +186,7 @@ def test_plan_not_divisible_raises(toy_graph):
 def test_auto_placement_resolution(toy_graph, monkeypatch):
     """"auto": replicated for a small graph; rowshard only when the table
     exceeds 75% of the device's memory AND the mesh has more than one device."""
-    from telomeri_tpu.utils.logging import Metrics
+    from telomeri_tpu_torch.utils.logging import Metrics
 
     cfg = ScaffoldConfig(**CFG, graph_placement="auto")
     mesh = fake_mesh(0, 8)

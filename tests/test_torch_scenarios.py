@@ -3,8 +3,8 @@ simulates a dataset of tests/test_scale.py (or tests/test_fuzz.py's poisoned
 PAF), runs telomeri_tpu's run_pipeline and the port's on it, and holds the port
 to the reference: the FASTA bytes, the accepted pairs and their representative
 uids, the candidate bridges, every walk record (score_sum by its float32 bits)
-and every metric except the device, the scoring backend and the dispatch
-times; the accepted pairs are also the reference test's.
+and every metric except the device, the scoring backend, the parser backend
+(each package has its own native library) and the dispatch times; the accepted pairs are also the reference test's.
 
 This file: a rescue round that fires with polish on, the chimera bait at
 support 1 under both support modes, spanning reads with hub rows and the
@@ -27,7 +27,8 @@ from test_torch_dist import assert_records_equal
 from telomeri_tpu.config import ScaffoldConfig
 from telomeri_tpu.pipeline import run_pipeline as ref_run_pipeline
 from telomeri_tpu.sim import SimConfig, simulate, write_dataset
-from telomeri_tpu_torch import gap_report
+from telomeri_tpu_torch import gap_report, interop
+from telomeri_tpu_torch.native import paf_native
 from telomeri_tpu_torch.pipeline import run_pipeline
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -77,7 +78,8 @@ def assert_port_matches_reference(data_dir: str, cfg: ScaffoldConfig, tmp_path, 
     exactly `pairs`. Returns the port's result."""
     ref_fa, port_fa = str(tmp_path / "ref.fa"), str(tmp_path / "port.fa")
     want = ref_run_pipeline(*inputs(data_dir), ref_fa, cfg)
-    got = run_pipeline(*inputs(data_dir), port_fa, cfg, device="cpu")
+    got = run_pipeline(*inputs(data_dir), port_fa, interop.config_from_reference(cfg),
+                       device="cpu")
     assert read_bytes(port_fa) == read_bytes(ref_fa)
     assert [(b.pair, b.rep_uid) for b in got.accepted] == \
         [(b.pair, b.rep_uid) for b in want.accepted]
@@ -89,16 +91,22 @@ def assert_port_matches_reference(data_dir: str, cfg: ScaffoldConfig, tmp_path, 
     for k in ("device", "scoring_backend"):
         mw.pop(k, None)
         mg.pop(k, None)
+    # each package loads its own build of the native parsers
+    mw.pop("parser_backend")
+    assert mg.pop("parser_backend") == ("native" if paf_native.available() else "python")
     assert mg == mw
     return got
 
 
 @pytest.fixture(autouse=True)
 def dispatch_history(tmp_path, monkeypatch):
-    """Keep the dispatch watch's cross-run history out of the user's cache."""
+    """Keep both packages' dispatch watches' cross-run history (one file) out
+    of the user's cache."""
     from telomeri_tpu.utils import watchdog
+    from telomeri_tpu_torch.utils import watchdog as port_watchdog
 
-    monkeypatch.setattr(watchdog, "HISTORY_PATH", str(tmp_path / "dispatch_history.json"))
+    for mod in (watchdog, port_watchdog):
+        monkeypatch.setattr(mod, "HISTORY_PATH", str(tmp_path / "dispatch_history.json"))
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +180,8 @@ def _gap_reports(data_dir: str, cfg: ScaffoldConfig, run) -> tuple[str, str]:
     """(the port's report, the reference tool's) on the port's artifacts of
     one run, laid out as `scaffold --save-graph --save-walks` leaves them."""
     run.mkdir()
-    run_pipeline(*inputs(data_dir), str(run / "out.fa"), cfg, device="cpu",
+    run_pipeline(*inputs(data_dir), str(run / "out.fa"), interop.config_from_reference(cfg),
+                 device="cpu",
                  save_graph_path=str(run / "graph.npz"), save_walks_path=str(run / "walks.npz"))
     (run / "out.fa.config.json").write_text(cfg.to_json())
     got, want = io.StringIO(), io.StringIO()

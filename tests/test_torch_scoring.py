@@ -14,6 +14,7 @@ import torch
 from telomeri_tpu.config import ScaffoldConfig
 from telomeri_tpu.io.paf import PafRecords
 from telomeri_tpu.kernels import scoring as ref
+from telomeri_tpu_torch import interop
 from telomeri_tpu_torch.io.geometry import build_edges, rescore_edges_device
 from telomeri_tpu_torch.kernels import scoring
 
@@ -103,7 +104,8 @@ def test_rescore_on_cpu_keeps_edges(rng):
 
     paf = _paf(rng, 3000)
     cfg = ScaffoldConfig()
-    host, st = build_edges(paf, cfg, 30)
+    host, st = build_edges(interop.paf_from_reference(paf),
+                           interop.config_from_reference(cfg), 30)
     want, ref_st = ref_build_edges(paf, cfg, 30)
     assert st.as_dict() == ref_st.as_dict() and len(host) > 100
     for f in dataclasses.fields(want):

@@ -5,7 +5,7 @@ import contextlib
 import json
 import os
 
-from telomeri_tpu.config import ScaffoldConfig
+from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.cli.main import main as cli_main
 from telomeri_tpu_torch.pipeline import run_pipeline
 from telomeri_tpu_torch.utils.profiling import maybe_trace

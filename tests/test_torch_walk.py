@@ -22,6 +22,10 @@ from telomeri_tpu_torch import interop
 from telomeri_tpu_torch.kernels import walk_scan
 from telomeri_tpu_torch.walk import engine
 
+# the reference's graph / plan / config as the port's classes
+G, P, C = (interop.graph_from_reference, interop.plan_from_reference,
+           interop.config_from_reference)
+
 
 def assert_walks_equal(want, got):
     """Every WalkResult field equal; score_sum compared by its float32 bits."""
@@ -43,7 +47,7 @@ def test_graph_tables_match_reference(rng):
     g = random_graph(rng)
     want = np.asarray(ref.graph_to_device(g).wide)
     via_interop = interop.graph_dev_from_numpy(want)
-    own = engine.graph_to_device(g, "cpu")
+    own = engine.graph_to_device(G(g), "cpu")
     assert own.h == ref.graph_to_device(g).h
     np.testing.assert_array_equal(own.wide.numpy(), want)
     np.testing.assert_array_equal(via_interop.wide.numpy(), own.wide.numpy())
@@ -77,11 +81,57 @@ def test_walk_scan_records_match_reference_scan(rng):
     bits = ref._stable_bits_table(3, jnp.asarray(sub.uid), 12)
     want = _vmem_scan(gd, jnp.asarray(sub.start), jnp.transpose(bits), max_steps=12,
                       tile=len(sub), strategy="loop", interpret=True)
-    got = walk_scan.walk_scan(engine.graph_to_device(g, "cpu").wide,
-                              torch.from_numpy(sub.start),
-                              torch.from_numpy(np.array(bits).view(np.int32)), 12)
+    wide = engine.graph_to_device(G(g), "cpu").wide
+    got = walk_scan.walk_scan(wide, torch.from_numpy(sub.start), torch.from_numpy(sub.uid), 3, 12)
+    given = walk_scan.walk_scan_torch(wide, torch.from_numpy(sub.start),
+                                      torch.from_numpy(np.array(bits).view(np.int32)), 12)
     for k in range(5):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=str(k))
+        np.testing.assert_array_equal(given[k].numpy(), np.asarray(want[k]), err_msg=str(k))
+
+
+@pytest.mark.parametrize("k", [8, 100], ids=["H64", "H128"])
+@pytest.mark.parametrize("max_steps", [24, 32, 33, 48, 96])
+def test_walk_scan_entry_matches_reference_mc_core(rng, max_steps, k):
+    """walk_scan(wide, start, uid, seed, S), the entry the MC section calls (on a
+    card: the kernel that draws for itself), against the reference's
+    _mc_fast_core: its records equal the plain scan over the reference's own draw
+    table, and the walks resolved from them equal the reference's, with rescue
+    uids (>= 1 << 30) and a negative seed among the walks."""
+    from telomeri_tpu_torch.walk.rescue import RESCUE_UID_BASE
+
+    seed = -5 if max_steps == 33 else 2**31 - 1
+    g = random_graph(rng, n_seqs=80, k=k)
+    p = plan_walks(g, ScaffoldConfig(mc_walks_per_end=6, max_steps=max_steps))
+    sub = _mc_section(g, p)
+    sub.uid[len(sub) // 2:] += RESCUE_UID_BASE
+    gd = engine.graph_to_device(G(g), "cpu")
+    assert gd.h == (64 if k == 8 else 128)
+    start, uid = torch.from_numpy(sub.start), torch.from_numpy(sub.uid)
+    got = walk_scan.walk_scan(gd.wide, start, uid, seed, max_steps)
+    ref_bits = np.array(ref._stable_bits_table(seed, jnp.asarray(sub.uid), max_steps))
+    want = walk_scan.walk_scan_torch(gd.wide, start, torch.from_numpy(ref_bits.view(np.int32)),
+                                     max_steps)
+    assert torch.equal(got, want)
+    core = ref._run_walks_mc_fast(ref.graph_to_device(g), ref.plan_to_device(sub), seed,
+                                  n_anchors=g.n_anchors, max_steps=max_steps)
+    resolved = engine.resolve_mc_events(
+        interop.plan_dev_from_numpy(sub), *got, n_nodes=int(gd.wide.shape[0]),
+        n_anchors=g.n_anchors, max_steps=max_steps)
+    assert_walks_equal(core, resolved)
+    assert_walks_equal(core, engine.run_walks_mc(gd, interop.plan_dev_from_numpy(sub), seed,
+                                                 n_anchors=g.n_anchors, max_steps=max_steps))
+
+
+def test_walk_scan_entry_rejects_what_the_kernel_does_not_take():
+    wide = torch.zeros((8, 6 * 64), dtype=torch.int32)
+    start = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="uid"):
+        walk_scan.walk_scan(wide, start, torch.zeros(3, dtype=torch.int32), 0, 3)
+    with pytest.raises(ValueError, match="uid"):
+        walk_scan.walk_scan(wide, start, start.long(), 0, 3)
+    with pytest.raises(ValueError, match="wide"):
+        walk_scan.walk_scan(wide[:, :100], start, start, 0, 3)
 
 
 @pytest.mark.parametrize("kind", ["greedy", "mixed"])
@@ -93,8 +143,8 @@ def test_kind_sections_match_reference(rng, kind):
         p = ref._slice_plan(p, lo, hi)
     want = ref._run_walks_kind(ref.graph_to_device(g), ref.plan_to_device(p), 5,
                                n_anchors=g.n_anchors, max_steps=10, kind=kind)
-    got = engine.run_walks_kind(engine.graph_to_device(g, "cpu"),
-                                engine.plan_to_device(p, "cpu"), 5,
+    got = engine.run_walks_kind(engine.graph_to_device(G(g), "cpu"),
+                                engine.plan_to_device(P(p), "cpu"), 5,
                                 n_anchors=g.n_anchors, max_steps=10, kind=kind)
     assert_walks_equal(want, got)
 
@@ -109,8 +159,8 @@ def test_chain_graph_semantics_match_reference():
     p.active[3] = False
     want = ref.run_walks(ref.graph_to_device(g), ref.plan_to_device(p), 0,
                          n_anchors=g.n_anchors, max_steps=8)
-    got = engine.run_walks(engine.graph_to_device(g, "cpu"),
-                           engine.plan_to_device(p, "cpu"), 0,
+    got = engine.run_walks(engine.graph_to_device(G(g), "cpu"),
+                           engine.plan_to_device(P(p), "cpu"), 0,
                            n_anchors=g.n_anchors, max_steps=8)
     assert_walks_equal(want, got)
 
@@ -121,9 +171,9 @@ def test_sectioned_and_chunked_match_run_walks_host(rng, max_batch):
     cfg = ScaffoldConfig(mc_walks_per_end=16, max_steps=10, max_walk_batch=max_batch)
     p = plan_walks(g, cfg)
     want = ref.run_walks_host(g, p, cfg)
-    got = engine.run_walks_host(g, p, cfg, "cpu")
+    got = engine.run_walks_host(G(g), P(p), C(cfg), "cpu")
     assert_walks_equal(want, got)
-    one = engine.run_walks_sectioned(engine.graph_to_device(g, "cpu"), p, cfg.mc_seed,
+    one = engine.run_walks_sectioned(engine.graph_to_device(G(g), "cpu"), P(p), cfg.mc_seed,
                                      n_anchors=g.n_anchors, max_steps=10)
     assert_walks_equal(want, one)
 
@@ -134,8 +184,8 @@ def test_engine_matches_oracle(rng, mode):
     cfg = ScaffoldConfig(mc_walks_per_end=3, max_steps=10)
     plan = plan_walks(g, cfg)
     sel = np.flatnonzero(plan.active & (plan.mode == mode))[:40]
-    r = engine.run_walks(engine.graph_to_device(g, "cpu"),
-                         engine.plan_to_device(plan, "cpu"), 11,
+    r = engine.run_walks(engine.graph_to_device(G(g), "cpu"),
+                         engine.plan_to_device(P(plan), "cpu"), 11,
                          n_anchors=g.n_anchors, max_steps=10).to_numpy()
     choice = jax_choice_fn(11, 10)
     for i in sel:
@@ -194,7 +244,7 @@ def test_empty_plan_gives_empty_records():
 
     g = mk_graph(6, 2, 2, {4: [(5, 1.0, 1.0, 10)]})   # anchors have no out-edges
     p = plan_walks(g, ScaffoldConfig(mc_walks_per_end=4))
-    got = engine.run_walks_host(g, p, ScaffoldConfig(max_steps=8), "cpu")
+    got = engine.run_walks_host(G(g), P(p), C(ScaffoldConfig(max_steps=8)), "cpu")
     assert tuple(got.nodes.shape) == (0, 9) and got.score_sum.dtype == torch.float32
 
 
@@ -237,7 +287,7 @@ def test_engines_match_reference_above_32_steps(rng, max_steps, dispatch):
     p = plan_walks(g, cfg)
     if dispatch == "chunked":
         want = ref.run_walks_host(g, p, cfg)
-        got = engine.run_walks_host(g, p, cfg, "cpu")
+        got = engine.run_walks_host(G(g), P(p), C(cfg), "cpu")
     else:
         if dispatch != "mixed":
             lo, hi = p.sections[dispatch]
@@ -246,8 +296,8 @@ def test_engines_match_reference_above_32_steps(rng, max_steps, dispatch):
         kw = dict(n_anchors=g.n_anchors, max_steps=max_steps)
         want = (ref._run_walks_mc_fast(gd, pd, cfg.mc_seed, **kw) if dispatch == "mc"
                 else ref._run_walks_kind(gd, pd, cfg.mc_seed, **kw, kind=dispatch))
-        got = engine.run_walks_kind(engine.graph_to_device(g, "cpu"),
-                                    engine.plan_to_device(p, "cpu"), cfg.mc_seed, **kw,
+        got = engine.run_walks_kind(engine.graph_to_device(G(g), "cpu"),
+                                    engine.plan_to_device(P(p), "cpu"), cfg.mc_seed, **kw,
                                     kind=dispatch)
     assert (np.asarray(want.steps) > 32).any()   # the windowed order is exercised
     assert_walks_equal(want, got)
