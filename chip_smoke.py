@@ -8,14 +8,25 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   0 device   needs torch.cuda; prints nvidia-smi's name and power limit
   1 build    nvcc builds csrc/*.cu for sm_90a from the checkout
   2 scoring  both scoring kernels (4 and 2 outputs) bitwise equal to the plain
-             torch version on the card and to the numpy oracle, n = 1 .. 64M;
-             kernel and plain times at 64M rows
+             torch version on the card and to the numpy oracle, n = 1 .. 64M
+             (3, 5, 127 and 1,000,003 rows end in the scalar tail) and on
+             contiguous views offset by 1 and 3 elements, with the instantiation
+             each shape launched (vector: 16-byte loads; scalar: 4-byte); then,
+             at the main path's 552,256 rows and at 64M rows, each kernel's
+             device time (CUDA events around replays of a CUDA graph of its
+             launches, with the L2 flushed before each launch and warm), the
+             wrapper's host time per call, the plain version's time and the
+             bound
   3 walks    simulates the E. coli preset (reused by phase 5) and the tandem
              array (reused by phase 7); on the lambda and E. coli graphs the
              fused walk-scan kernel's records and resolved walks are bitwise
              equal to its plain version (the torch draw table, then the plain
-             scan) on the card and on the CPU; kernel and plain times beside
-             the bound, also at the rescue round's batch cap; the E. coli MC
+             scan) on the card and on the CPU; kernel (device time, as in phase
+             2) and plain times beside the bound, also at the rescue round's
+             batch cap; the rescore kernel on the E. coli edges against the
+             host's scores, and the rescore stage's split (upload, kernel,
+             download, whole) as the package uploads and as one stacked
+             transfer; the E. coli MC
              section part by part (draw table, fused scan, event resolution:
              ms and device launches each); the
              kernel against its plain version at 48, 96 and odd step counts on
@@ -34,8 +45,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              walk-scan kernel: the launch counts of a torchrun child are out of
              sight); (b) the
              row-sharded placement (NCCL all_gather / reduce_scatter every walk
-             step), (c) resumed from (a)'s artifacts without the PAF files; the
-             walk stage's seconds of each run on its own line. Then lambda and
+             step), (c) resumed from (a)'s artifacts without the PAF files (the
+             first two runs side by side, then (b) beside (c)); the walk
+             stage's seconds of each run on its own line. Then lambda and
              E. coli through the library on a mesh of 1 (NCCL, this process) in
              both placements, byte-identical to golden_scaffolds.fa and phase 5,
              the walk-scan kernel launched on the replicated mesh path and not
@@ -50,14 +62,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              records (score_sum by its bits), representatives and counters; the
              reference test's pairs; the walk-scan kernel launched in the 48-
              and 96-step walk stages and more often with the rescue round on;
-             `python -m telomeri_tpu_torch.gap_report` printing the same report
-             on the card's and the CPU's artifacts of the missed gap
+             `python -m telomeri_tpu_torch.gap_report --device cuda` (its
+             consensus replayed on the card) on the card's artifacts of the
+             missed gap printing the same report as `diagnose(device="cuda")`
+             in this process on the CPU's
 Then neither telomeri_tpu nor jax may be in sys.modules; the kernels' summary
 line (time, plain time and bound of each), and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -80,7 +95,13 @@ SOURCES = {
 }
 PATH_KERNELS = ("walk_scan", "score_os_es2")   # what the scaffold path launches
 DEVICE = "cuda"
-SCORING_ROWS = (1, 1000, 1_000_003, 64 * 2**20)
+ECOLI_EDGES = 552_256   # the main path's scoring shape (phase 3 checks the count)
+# the timed shapes first: they are timed before this process first profiles
+SCORING_ROWS = (ECOLI_EDGES, 64 * 2**20, 1, 3, 5, 127, 1000, 1_000_003)
+SCORING_OFFSET_ROWS = (5, 127, 1_000_003)   # also scored on views a[1:] and a[3:]
+SCORING_TIMED_ROWS = (ECOLI_EDGES, 64 * 2**20)
+SCORING_KERNELS = ((2, "score_os_es2"), (4, "score_overlaps"))
+L2_FLUSH_BYTES = 128 * 2**20   # the H100's L2 holds 50 MB
 
 # phase 7: tests/test_scale.py's datasets as `simulate` flags, and its configs
 SCENARIO_SIMS = {
@@ -105,8 +126,13 @@ SCENARIOS = (   # name, dataset, config, accepted pairs (rescue_r0 misses gap 2)
 )
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line; t_s is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 1), **kv}),
+          flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -133,10 +159,133 @@ def paired_ms(kernel, plain, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _profiled(fn):
+    """fn() under torch.profiler (host and device activity); its events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof.events()
+
+
+def kernel_names(fn, kernel: str) -> set[str]:
+    """Names of the device kernels containing `kernel` that fn() launched, as
+    torch.profiler (CUPTI) names them on the card. Used to name a launch, never
+    to time or count it: device records can go missing in this process (the
+    host's launch records do not, and _device_launches counts those), so a
+    window in which none arrived is run again."""
+    from torch.autograd import DeviceType
+
+    for _ in range(3):
+        names = {e.name for e in _profiled(fn)
+                 if e.device_type == DeviceType.CUDA and kernel in e.name}
+        if names:
+            break
+    return names
+
+
+def graph_ms(body, replays: int = 10) -> float:
+    """Device time, ms, of one replay of a CUDA graph that captured body() once:
+    CUDA events around each of `replays` replays (3 where one takes over 10 ms)
+    after an untimed one, the median. The card runs the captured launches with
+    no Python between them."""
+    import statistics
+
+    import torch
+
+    body()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    t0 = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 0.01:   # a long graph spreads little
+        replays = 3
+    ms = []
+    for _ in range(replays):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    del graph
+    return statistics.median(ms)
+
+
+TIMING = ("CUDA events around replays of a CUDA graph (median of 10 replays, of 3 above 10 ms). ms: L2 flushed, "
+          f"a graph of 20 x ({L2_FLUSH_BYTES >> 20} MB write, launch) less a graph of the 20 "
+          "writes, over 20; ms_warm: back to back, a graph of 40 launches less one of 20, over 20")
+
+
+def device_ms(fn, launches: int = 20) -> tuple[float, float]:
+    """(flushed, warm) device time in ms of the one kernel that fn() launches,
+    not the pace of the Python around it (TIMING says how). Flushed: before
+    every launch a write pass over a scratch tensor larger than the L2, so the
+    kernel's inputs come from device memory, as the bound counts them."""
+    import torch
+
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+
+    def rep(k: int, flush: bool, launch: bool):
+        def body():
+            for _ in range(k):
+                if flush:
+                    scratch.zero_()
+                if launch:
+                    fn()
+        return graph_ms(body)
+
+    flushed = (rep(launches, True, True) - rep(launches, True, False)) / launches
+    warm = (rep(2 * launches, False, True) - rep(launches, False, True)) / launches
+    return flushed, warm
+
+
+def wrapper_host_us(fn, calls: int, repeats: int = 5) -> float:
+    """Host time of one wrapper call, in microseconds: `calls` calls and one
+    synchronize on the host's clock, over the calls; the median of `repeats`
+    loops. Where the kernel outlasts its wrapper this is the card's pace."""
+    import statistics
+
+    import torch
+
+    fn()
+    us = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        us.append((time.perf_counter() - t0) / calls * 1e6)
+    return statistics.median(us)
+
+
+def kernel_times(fn, plain, bound: dict, iters: int) -> dict:
+    """The readings of one kernel at one shape: ms (the number the kernels line
+    reports) and ms_warm from device_ms, the wrapper's host time per call, the
+    plain version's time (CUDA events around a loop) and the bound."""
+    ms, ms_warm = device_ms(fn)
+    return dict(ms=ms, ms_warm=ms_warm, wrapper_host_us=wrapper_host_us(fn, 8 * iters),
+                plain_ms=cuda_ms(plain, iters), share_of_bound=bound["bound_ms"] / ms,
+                **bound, timing=TIMING)
+
+
+def _together(a, b):
+    """a and b on one device: the card where either lies there."""
+    dev = a.device if a.is_cuda else b.device
+    return a.to(dev), b.to(dev)
+
+
 def same_bits(a, b) -> bool:
     import torch
 
-    a, b = a.cpu(), b.cpu()
+    a, b = _together(a, b)
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return a.shape == b.shape and torch.equal(a, b)
@@ -144,7 +293,8 @@ def same_bits(a, b) -> bool:
 
 def max_abs_err(a, b) -> float:
     """Largest |a - b| over the elements (0.0 for empty tensors)."""
-    d = (a.cpu().double() - b.cpu().double()).abs()
+    a, b = _together(a, b)
+    d = (a.double() - b.double()).abs()
     return float(d.max()) if d.numel() else 0.0
 
 
@@ -194,8 +344,11 @@ def phase_build() -> None:
 
 
 def _geometry(rng, n: int):
+    """Eight int32 geometry columns of n rows; above 2**22 rows a random block
+    of that many, repeated."""
     import numpy as np
 
+    rows, n = n, min(n, 2**22)
     g = [rng.integers(0, 5000, n), rng.integers(0, 6000, n), rng.integers(0, 6000, n),
          rng.integers(0, 6000, n), rng.integers(0, 2000, n), rng.integers(0, 2000, n),
          rng.integers(-30000, 30000, n), rng.integers(-30000, 30000, n)]
@@ -206,13 +359,41 @@ def _geometry(rng, n: int):
         for a in (g[0], g[2], g[6], g[7]):
             a[: len(big)] = big
         g[6][-4:] = -(2**31) + 1
-    return g
+    return g if rows == n else [np.resize(a, rows) for a in g]
+
+
+def _scoring_row_bytes(outputs: int) -> int:
+    """The bytes the function must move per row: the int32 columns its outputs
+    depend on (all 8 with 4 outputs; 7 with 2, where nothing depends on el1)
+    and `outputs` float32 columns."""
+    return 4 * (8 if outputs == 4 else 7) + 4 * outputs
 
 
 def _scoring_bound(n: int, outputs: int) -> dict:
-    """8 int32 columns read and `outputs` float32 columns written once; about
-    12 float32 operations a row."""
-    return _bound(n * (32 + 4 * outputs), n * 12)
+    """Each needed column read once, each output written once; about 12
+    float32 operations a row."""
+    return _bound(n * _scoring_row_bytes(outputs), n * 12)
+
+
+def _score_instantiation(kernel_name: str) -> str:
+    """Which of csrc/scoring.cu's two kernels a launch was."""
+    for tag, inst in (("score_kernel_vec", "vector"), ("score_kernel_scalar", "scalar")):
+        if tag in kernel_name:
+            return inst
+    raise AssertionError(f"not a scoring kernel of csrc/scoring.cu: {kernel_name}")
+
+
+def scoring_times(geom, results: dict) -> None:
+    """Both scoring kernels on the geometry tensors (on the card): kernel_times."""
+    from telomeri_tpu_torch.kernels import scoring
+
+    n = int(geom[0].shape[0])
+    for outputs, name in SCORING_KERNELS:
+        t = kernel_times(lambda: scoring.score_overlaps_cuda(*geom, outputs=outputs),
+                         lambda: scoring.score_overlaps_torch(*geom, outputs=outputs),
+                         _scoring_bound(n, outputs), 20 if n < 2**24 else 5)
+        results.setdefault(f"{name}@{n}", {}).update(t)
+        emit("scoring_time", kernel=name, rows=n, bytes_per_row=_scoring_row_bytes(outputs), **t)
 
 
 def phase_scoring(results: dict) -> None:
@@ -222,33 +403,39 @@ def phase_scoring(results: dict) -> None:
     from telomeri_tpu_torch.kernels import scoring
 
     rng = np.random.default_rng(2026)
+    cases = [(n, 0) for n in SCORING_ROWS] + [(n, k) for n in SCORING_OFFSET_ROWS for k in (1, 3)]
     checked = []
-    errs: dict[int, float] = {}
-    for n in SCORING_ROWS:
-        g = _geometry(rng, n)
-        want = [torch.from_numpy(a) for a in scoring.score_arrays_np(*g)]
-        geom = [torch.from_numpy(a).to(DEVICE) for a in g]
-        for outputs, cols in ((4, (0, 1, 2, 3)), (2, (1, 3))):
+    for n, offset in cases:
+        full = _geometry(rng, n + offset)   # the views a[offset:] are scored
+        want = [torch.from_numpy(a) for a in scoring.score_arrays_np(*[a[offset:] for a in full])]
+        geom = [torch.from_numpy(a).to(DEVICE)[offset:] for a in full]
+        require(all(a.is_contiguous() and (a.data_ptr() % 16 == 0) == (offset == 0)
+                    for a in geom), f"scoring n={n} offset={offset}: unexpected alignment")
+        for outputs, name in SCORING_KERNELS:
+            cols = (0, 1, 2, 3) if outputs == 4 else (1, 3)
+            what = f"scoring n={n} offset={offset} outputs={outputs}"
             got = scoring.score_overlaps_cuda(*geom, outputs=outputs)
             plain = scoring.score_overlaps_torch(*geom, outputs=outputs)
             torch.cuda.synchronize()
-            errs[outputs] = max(max_abs_err(k, p) for k, p in zip(got, plain))
+            err = max(max_abs_err(k, p) for k, p in zip(got, plain))
             for c, k, p in zip(cols, got, plain):
-                require(same_bits(k, p), f"scoring n={n} outputs={outputs} col {c}: kernel != plain")
-                require(same_bits(k, want[c]), f"scoring n={n} outputs={outputs} col {c}: kernel != numpy")
-            checked.append([n, outputs])
-        if n == SCORING_ROWS[-1]:
-            for outputs, name in ((2, "score_os_es2"), (4, "score_overlaps")):
-                ms, plain_ms = paired_ms(
-                    lambda: scoring.score_overlaps_cuda(*geom, outputs=outputs),
-                    lambda: scoring.score_overlaps_torch(*geom, outputs=outputs), 10)
-                gb = n * (32 + 4 * outputs) / 1e9
-                results[name + "@64M"] = dict(ms=ms, plain_ms=plain_ms,
-                                              max_abs_err=errs[outputs],
-                                              **_scoring_bound(n, outputs))
-                emit("scoring_time", kernel=name, rows=n, ms=ms, plain_ms=plain_ms,
-                     gb_per_s=gb / (ms / 1e3), plain_gb_per_s=gb / (plain_ms / 1e3),
-                     bytes_per_row=32 + 4 * outputs)
+                require(k.shape == p.shape and k.dtype == p.dtype and k.is_contiguous(),
+                        f"{what} col {c}: the kernel's output is not laid out as the plain one")
+                require(same_bits(k, p), f"{what} col {c}: kernel != plain (max abs err {err})")
+                require(same_bits(k, want[c]), f"{what} col {c}: kernel != numpy")
+            checked.append(dict(rows=n, offset=offset, outputs=outputs, max_abs_err=err))
+            if (n, offset) == (ECOLI_EDGES, 0):
+                results[f"{name}@{n}"] = dict(max_abs_err=err)
+        if n in SCORING_TIMED_ROWS and not offset:
+            scoring_times(geom, results)
+        # which of the two kernels the launcher took, by the names the card ran
+        inst = sorted({_score_instantiation(k) for k in kernel_names(
+            lambda: [scoring.score_overlaps_cuda(*geom, outputs=o) for o in (2, 4, 2, 4)],
+            "score_kernel")})
+        require(inst == ["scalar" if offset else "vector"],
+                f"scoring n={n} offset={offset} launched {inst}")
+        for c in checked[-len(SCORING_KERNELS):]:
+            c["instantiation"] = inst[0]
         del geom, want
     emit("scoring", ok=True, bitwise_equal=checked)
 
@@ -293,20 +480,12 @@ def _scan_equals_plain(name, wide, pd, seed, s, n_anchors):
 
 
 def _device_launches(fn) -> int:
-    """Device kernels that one call of fn() launches (torch.profiler)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device kernels that one call of fn() launches: the kernel-launch calls
+    (cudaLaunchKernel, cuLaunchKernel and their variants) that torch.profiler
+    records on the host's side; copies and memsets are other calls."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "memcpy" not in e.key.lower()
-            and "memset" not in e.key.lower())
-    require(n > 0, "torch.profiler saw no device kernel")
+    n = sum(1 for e in _profiled(fn) if "LaunchKernel" in e.name or "LaunchCooperative" in e.name)
+    require(n > 0, "torch.profiler saw no kernel launch")
     return n
 
 
@@ -358,16 +537,15 @@ def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True,
             require(same_bits(a, b), f"{name}: resolved {f} differs (CPU)")
     scan = lambda: walk_scan.walk_scan_cuda(gd.wide, pd.start, pd.uid, seed, s)
     section = lambda: engine.run_walks_mc(gd, pd, seed, n_anchors=graph.n_anchors, max_steps=s)
-    ms, plain_ms = paired_ms(scan, lambda: _plain_scan(gd.wide, pd.start, pd.uid, seed, s), 5)
+    t = kernel_times(scan, lambda: _plain_scan(gd.wide, pd.start, pd.uid, seed, s),
+                     _scan_bound(kern, gd.wide, pd, s), 5)
     section_ms = cuda_ms(section, 5)
-    bound = _scan_bound(kern, gd.wide, pd, s)
-    results[f"walk_scan@{name}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **bound)
+    results[f"walk_scan@{name}"] = dict(max_abs_err=err, **t)
     emit("walk_scan", graph=name, walks=w, max_steps=s, h=gd.h, nodes=int(gd.wide.shape[0]),
-         table_mb=engine.device_table_bytes(graph) / 1e6, ms=ms, plain_ms=plain_ms,
-         walks_per_s=w / (ms / 1e3), plain_walks_per_s=w / (plain_ms / 1e3),
+         table_mb=engine.device_table_bytes(graph) / 1e6,
+         walks_per_s=w / (t["ms"] / 1e3), plain_walks_per_s=w / (t["plain_ms"] / 1e3),
          mc_section_ms=section_ms, mc_section_walks_per_s=w / (section_ms / 1e3),
-         successful=int(res_k.success.sum()), cpu_checked=cpu_check,
-         share_of_bound=bound["bound_ms"] / ms, **bound)
+         successful=int(res_k.success.sum()), cpu_checked=cpu_check, **t)
     if not split:
         return
     # the section part by part: the draw table and the event resolution in
@@ -479,7 +657,9 @@ def phase_walks(ecoli_dir: str, tandem_dir: str, results: dict) -> None:
         active=np.ones(w, bool), sections={"greedy": (0, 0), "mc": (0, w)})
     _check_walk_scan("ecoli_rescue_cap", graph, big, cfg, results, cpu_check=False)
 
-    # the rescore kernel at the E. coli edge count (the main path's shape)
+    # the rescore kernel on the E. coli edges (the main path's shape and data)
+    require(len(edges) == ECOLI_EDGES, f"E. coli has {len(edges)} edges, phase 2 timed "
+                                       f"{ECOLI_EDGES} rows as the main path's shape")
     geom = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(DEVICE)
             for a in edges.geom_args()]
     got = scoring.score_overlaps_cuda(*geom, outputs=2)
@@ -488,12 +668,68 @@ def phase_walks(ecoli_dir: str, tandem_dir: str, results: dict) -> None:
     for k, p, h in zip(got, plain, (edges.os_, edges.es)):
         require(same_bits(k, p) and same_bits(k, torch.from_numpy(h)),
                 f"ecoli rescore: kernel differs (max abs err {err})")
-    ms, plain_ms = paired_ms(lambda: scoring.score_overlaps_cuda(*geom, outputs=2),
-                             lambda: scoring.score_overlaps_torch(*geom, outputs=2), 20)
-    results["score_os_es2@ecoli"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                                         **_scoring_bound(len(edges), 2))
-    emit("scoring_time", kernel="score_os_es2", rows=len(edges), ms=ms, plain_ms=plain_ms,
-         **_scoring_bound(len(edges), 2))
+    emit("ecoli_rescore", ok=True, rows=len(edges), max_abs_err=err,
+         bitwise_equal_to=["plain", "build_edges' host scores"])
+    del geom, got, plain
+    _rescore_split(edges)
+
+
+def _rescore_split(edges) -> None:
+    """The rescore stage (io.geometry.rescore_edges_device) on the E. coli edges,
+    part by part on the host's clock, each part ended by a synchronize: the
+    upload as the package does it (eight pageable copies), with el, which
+    rides as EL1 and EL2, sent once, and as one stacked (8, n) transfer; the
+    kernel; the download; then the stage whole and the host's numpy scorer on
+    the same rows."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from telomeri_tpu_torch.io import geometry
+    from telomeri_tpu_torch.kernels import scoring
+
+    def timed(fn, repeats: int = 7):
+        """(median ms after one untimed call, the last result)."""
+        ms = []
+        for _ in range(repeats + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms[1:]), out
+
+    host = [np.ascontiguousarray(a, dtype=np.int32) for a in edges.geom_args()]
+
+    def el_once():
+        dev = [torch.from_numpy(a).to(DEVICE) for a in host[:7]]
+        return dev + [dev[6]]
+
+    uploads = {"package": lambda: [torch.from_numpy(a).to(DEVICE) for a in host],
+               "el_once": el_once,
+               "stacked": lambda: list(torch.from_numpy(np.stack(host)).to(DEVICE))}
+    require(host[6] is host[7] or np.array_equal(host[6], host[7]), "el1 and el2 differ")
+    h2d_ms = {}
+    for name, fn in uploads.items():
+        h2d_ms[name], geom = timed(fn)
+        got = scoring.score_overlaps_cuda(*geom, outputs=2)
+        for k, h in zip(got, (edges.os_, edges.es)):
+            require(same_bits(k, torch.from_numpy(h)), f"rescore upload {name}: scores differ")
+    geom = uploads["package"]()
+    kernel_ms, out = timed(lambda: scoring.score_overlaps_cuda(*geom, outputs=2))
+    d2h_ms, _ = timed(lambda: [o.cpu().numpy() for o in out])
+    whole_ms, rescored = timed(
+        lambda: geometry.rescore_edges_device(dataclasses.replace(edges), DEVICE))
+    require(same_bits(torch.from_numpy(rescored.os_), torch.from_numpy(edges.os_)) and
+            same_bits(torch.from_numpy(rescored.es), torch.from_numpy(edges.es)),
+            "rescore_edges_device changed the scores")
+    host_ms, _ = timed(lambda: scoring.score_arrays_np(*host))
+    emit("rescore_split", rows=len(edges), upload_mb=sum(a.nbytes for a in host) / 1e6,
+         download_mb=2 * 4 * len(edges) / 1e6, h2d_ms=h2d_ms, kernel_ms=kernel_ms,
+         d2h_ms=d2h_ms, whole_ms=whole_ms, host_numpy_ms=host_ms,
+         clock="host perf_counter, each part ended by torch.cuda.synchronize; medians of 7")
 
 
 def phase_lambda(tmp: str) -> None:
@@ -578,7 +814,8 @@ def _torchrun_scaffold(nproc: int, args: list[str], out: str, timeout: int = 600
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
            "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
            "-m", "telomeri_tpu_torch.cli.main", "scaffold", *args, "--out", out]
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # its own dispatch history: two runs side by side would share the default file
+    env = dict(os.environ, PYTHONPATH=ROOT, TELOMERI_CACHE=out + ".cache")
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             cwd=ROOT, env=env, start_new_session=True)
     try:
@@ -645,6 +882,8 @@ def _rowshard_fetch_cost(mesh, graph, plan) -> None:
 
 
 def phase_mesh(ecoli_dir: str, tmp: str) -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from telomeri_tpu_torch.dist.mesh import init_distributed, make_walk_mesh, shutdown_distributed
@@ -671,10 +910,17 @@ def phase_mesh(ecoli_dir: str, tmp: str) -> None:
              torchrun_wall_s=round(wall, 3), n_walks=m["metrics"]["n_walks"],
              device=m["metrics"]["device"])
 
-    run("replicated", 1, "replicated", paf)
+    def run_pair(*runs) -> None:
+        """Two torchrun worlds of 1 side by side on the card: most of a run is
+        its process reaching the card, which the next one need not wait for."""
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for done in [pool.submit(run, *r) for r in runs]:
+                done.result()
+
     trace = os.path.join(tmp, "mesh_trace")
-    run("a_replicated_traced", 1, "replicated",
-        paf + ["--save-graph", graph_a, "--save-walks", walks_a, "--trace", trace])
+    run_pair(("replicated", 1, "replicated", paf),
+             ("a_replicated_traced", 1, "replicated",
+              paf + ["--save-graph", graph_a, "--save-walks", walks_a, "--trace", trace]))
     files = os.listdir(trace) if os.path.isdir(trace) else []
     require(len(files) == 1, f"--trace wrote {files}")
     text = _read(os.path.join(trace, files[0])).decode()
@@ -691,8 +937,8 @@ def phase_mesh(ecoli_dir: str, tmp: str) -> None:
     emit("mesh_trace", file=files[0], bytes=len(text), names_walk_scan_kernel=True,
          device_kernels=len(kernels), kernels_before_the_scan=scans[0],
          threefry_elementwise_kernels_before_the_scan=0)
-    run("b_rowshard", 1, "rowshard", paf)
-    run("c_resume", 1, "replicated", ["--graph", graph_a, "--walks", walks_a])
+    run_pair(("b_rowshard", 1, "rowshard", paf),
+             ("c_resume", 1, "replicated", ["--graph", graph_a, "--walks", walks_a]))
 
     _, graph, plan = _build(ecoli_dir, ScaffoldConfig(device_scoring="on"))
     init_distributed(DEVICE)   # a world of 1 in this process
@@ -728,7 +974,9 @@ def _scenario_run(data: str, cfg, out_dir: str, device: str):
 
 
 def _gap_report(rundir: str) -> str:
-    proc = subprocess.run([sys.executable, "-m", "telomeri_tpu_torch.gap_report", rundir],
+    """The tool's report of a run directory, its consensus replayed on the card."""
+    proc = subprocess.run([sys.executable, "-m", "telomeri_tpu_torch.gap_report",
+                           "--device", DEVICE, rundir],
                           capture_output=True, text=True, timeout=300, cwd=ROOT,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     require(proc.returncode == 0, f"gap_report {rundir} exited {proc.returncode}: "
@@ -803,7 +1051,13 @@ def phase_scenarios(tmp: str, tandem_dir: str) -> None:
              timings_s={DEVICE: _device_stage_s(card), "cpu": _device_stage_s(cpu)})
     require(scan_launches["rescue_r1"] > scan_launches["rescue_r0"],
             f"the rescue round launched no walk scan: {scan_launches}")
-    reports = [_gap_report(os.path.join(tmp, f"rescue_r0_{d}")) for d in ("card", "cpu")]
+    # the card's artifacts through `python -m`, the CPU's through the library
+    # call in this process (a second process would spend its time reaching the card)
+    from telomeri_tpu_torch.gap_report import diagnose
+
+    buf = io.StringIO()
+    diagnose(os.path.join(tmp, "rescue_r0_cpu"), out=buf, device=DEVICE)
+    reports = [_gap_report(os.path.join(tmp, "rescue_r0_card")), buf.getvalue()]
     require(reports[0] == reports[1], "gap_report differs between the card's and the CPU's run")
     missed = json.loads(reports[0])["missed"]
     require([d["gap"] for d in missed] == [2], f"gap_report missed {missed}")
@@ -842,14 +1096,16 @@ def main(argv: list[str]) -> int:
     require(not loaded, f"the port's run imported {loaded}")
 
     kernels = []
-    for name in SOURCES:   # the path's kernels timed at the E. coli shapes (phase 3),
-        src, replaces = SOURCES[name]   # score_overlaps at 2**26 rows (phase 2)
-        t = results[f"{name}@ecoli" if name in PATH_KERNELS else f"{name}@64M"]
-        # library_ms: no single PyTorch call computes either function
+    for name in SOURCES:   # each at the main path's (E. coli) shape, from phases 2 and 3
+        src, replaces = SOURCES[name]
+        t = results[f"{name}@ecoli" if name == "walk_scan" else f"{name}@{ECOLI_EDGES}"]
+        # ms: device time with the L2 flushed; library_ms: no single PyTorch call
+        # computes either function
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=counts[name], launches_per_run=counts[name],
                             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
-                            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None))
+                            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+                            ms_warm=t["ms_warm"], wrapper_host_us=t["wrapper_host_us"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,23 +15,26 @@ for every UNBRIDGED gap, where the bridge was lost:
   low-support     a connecting group formed but count < min_group_support
   lost-consensus  connecting walks exist but another group won the pair
 
-The consensus, gate and coherence are this package's (host numpy records, on
-the CPU); the report is the reference tool's, key for key, so both print the
-same JSON on the same run directory. No jax is imported.
+The consensus, gate and coherence are this package's; the consensus runs on
+the card unless the CPU is asked for (it is bit-equal on both), the gate and
+coherence on host numpy records. The report is the reference tool's, key for
+key, so both print the same JSON on the same run directory. No jax is imported.
 
-    python -m telomeri_tpu_torch.gap_report RUNDIR
+    python -m telomeri_tpu_torch.gap_report RUNDIR [--device {cuda,cpu}]
         # RUNDIR holds graph.npz, walks.npz and <out>.config.json from
         # `scaffold --save-graph RUNDIR/graph.npz --save-walks RUNDIR/walks.npz`
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
 from collections import Counter
 
 import numpy as np
+import torch
 
 from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.scaffold.bridge import End, resolve_with_blockers, terminal_end
@@ -71,11 +74,15 @@ def _no_connection(rows: np.ndarray, succ, steps, term, max_steps: int) -> dict:
                 reached_other_anchors=dict(other.most_common(5)))
 
 
-def diagnose(rundir: str, out=sys.stdout) -> dict:
-    """Print (and return) the report of the run directory's unbridged gaps."""
+def diagnose(rundir: str, out=sys.stdout, device="cuda") -> dict:
+    """Print (and return) the report of the run directory's unbridged gaps; the
+    consensus is replayed on `device` (no step down to the CPU without a card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA device")
     cfg, edges, graph, plan, walks = _load(rundir)
     n_c = graph.n_anchors
-    cons = _consensus(walks, plan, graph, cfg, "cpu")
+    cons = _consensus(walks, plan, graph, cfg, device)
     rows = compress(cons)
     blocked_rows = []
     if cfg.support_mode == "read_diverse":
@@ -161,11 +168,17 @@ def diagnose(rundir: str, out=sys.stdout) -> dict:
 
 
 def main(argv: list[str] | None = None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
-        print("usage: python -m telomeri_tpu_torch.gap_report RUNDIR", file=sys.stderr)
-        return 2
-    diagnose(argv[0])
+    ap = argparse.ArgumentParser(prog="python -m telomeri_tpu_torch.gap_report",
+                                 description="Per-gap bridge diagnosis of a saved run.")
+    ap.add_argument("rundir", metavar="RUNDIR",
+                    help="holds graph.npz, walks.npz and <out>.config.json")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the consensus is replayed (default: cuda)")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("--device cuda: torch sees no CUDA device (use --device cpu)", file=sys.stderr)
+        return 1
+    diagnose(args.rundir, device=args.device)
     return 0
 
 

@@ -17,7 +17,14 @@ this order — every implementation below is bit-equal to the numpy oracle:
 
 The kernel replaces the Pallas TPU kernels _score_kernel (4 outputs) and
 _score_kernel_os_es2 (2 outputs) of telomeri_tpu/kernels/scoring.py. It is bound
-by device memory bandwidth: 32 B read and 8 or 16 B written per row.
+by device memory bandwidth: 48 B a row with 4 outputs, 36 B with 2 (el1 is then
+not read). On arrays that are all 16-byte aligned (whole tensors of PyTorch's
+allocator) each thread takes four rows with 16-byte loads and stores; a view
+that starts off that alignment (a[1:]) takes the kernel's 4-byte instantiation,
+chosen by the C launcher. At the rescore path's size the pass takes microseconds on the card,
+so the wrapper keeps its own cost on the host small: the library function is
+resolved once, the outputs are rows of one allocation (each row starting on
+16 bytes), and the geometry is checked in one pass.
 """
 
 from __future__ import annotations
@@ -59,47 +66,65 @@ def score_overlaps_torch(nm, bl, ol1, ol2, oh1, oh2, el1, el2, *, outputs: int =
 def _check_geom(geom) -> int:
     if len(geom) != 8:
         raise ValueError(f"scoring takes 8 geometry arrays, got {len(geom)}")
-    n = geom[0].shape[0]
-    dev = geom[0].device
+    first = geom[0]
+    shape, dev = first.shape, first.device
+    if len(shape) != 1:
+        raise ValueError(f"geometry arrays must be 1-D of one length, got {tuple(shape)}")
     for a in geom:
-        if a.dim() != 1 or a.shape[0] != n:
+        if a.shape != shape:
             raise ValueError(f"geometry arrays must be 1-D of one length, got {tuple(a.shape)}")
         if a.dtype != torch.int32 or not a.is_contiguous() or a.device != dev:
             raise ValueError("geometry arrays must be contiguous int32 on one device")
-    return n
+    return shape[0]
+
+
+def _output_rows(n: int, outputs: int, device) -> tuple:
+    """`outputs` float32 (n,) tensors, the rows of one allocation, each row
+    starting on a 16-byte boundary (the row stride is n rounded up to 4)."""
+    stride = (n + 3) & ~3
+    rows = torch.empty((outputs, stride), dtype=torch.float32, device=device).unbind(0)
+    return rows if stride == n else tuple(r[:n] for r in rows)
+
+
+_kernel = None   # the library's telomeri_score_overlaps, resolved at the first launch
 
 
 def score_overlaps_cuda(nm, bl, ol1, ol2, oh1, oh2, el1, el2, *, outputs: int = 4):
     """The CUDA kernel on contiguous int32 CUDA tensors. Launches on the current
     stream, raises if the launch fails; returns what score_overlaps_torch does."""
+    global _kernel
     geom = (nm, bl, ol1, ol2, oh1, oh2, el1, el2)
     n = _check_geom(geom)
-    if geom[0].device.type != "cuda":
+    dev = nm.device
+    if dev.type != "cuda":
         raise ValueError("score_overlaps_cuda needs CUDA tensors")
     if outputs not in (2, 4):
         raise ValueError(f"outputs must be 2 or 4, got {outputs}")
-    lib = build.load()
-    with torch.cuda.device(geom[0].device):
-        out = [torch.empty(n, dtype=torch.float32, device=geom[0].device)
-               for _ in range(outputs)]
-        si, os_, es1, es2 = out if outputs == 4 else (None, out[0], None, out[1])
-        ptr = lambda t: t.data_ptr() if t is not None else None
-        rc = lib.telomeri_score_overlaps(
-            *[a.data_ptr() for a in geom], ptr(si), ptr(os_), ptr(es1), ptr(es2),
-            n, outputs, torch.cuda.current_stream().cuda_stream)
+    if dev.index != torch.cuda.current_device():   # the launch goes to the current device
+        with torch.cuda.device(dev):
+            return score_overlaps_cuda(*geom, outputs=outputs)
+    if _kernel is None:
+        _kernel = build.load().telomeri_score_overlaps
+    out = _output_rows(n, outputs, dev)
+    si, os_, es1, es2 = ([o.data_ptr() for o in out] if outputs == 4
+                         else (None, out[0].data_ptr(), None, out[1].data_ptr()))
+    rc = _kernel(nm.data_ptr(), bl.data_ptr(), ol1.data_ptr(), ol2.data_ptr(),
+                 oh1.data_ptr(), oh2.data_ptr(), el1.data_ptr(), el2.data_ptr(),
+                 si, os_, es1, es2, n, outputs, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc:
         build.check(rc, "score_overlaps")
     launches["score_overlaps" if outputs == 4 else "score_os_es2"] += 1
-    return tuple(out)
+    return out
 
 
 def score_overlaps(nm, bl, ol1, ol2, oh1, oh2, el1, el2, *, outputs: int = 4):
     """Dispatch on where the tensors lie: the plain version for CPU tensors, the
     kernel for CUDA tensors (it raises rather than fall back)."""
     geom = (nm, bl, ol1, ol2, oh1, oh2, el1, el2)
-    _check_geom(geom)
-    kind = geom[0].device.type
-    if kind == "cpu":
-        return score_overlaps_torch(*geom, outputs=outputs)
+    kind = nm.device.type
     if kind == "cuda":
         return score_overlaps_cuda(*geom, outputs=outputs)
-    raise ValueError(f"no scoring path for device {geom[0].device}")
+    _check_geom(geom)
+    if kind == "cpu":
+        return score_overlaps_torch(*geom, outputs=outputs)
+    raise ValueError(f"no scoring path for device {nm.device}")

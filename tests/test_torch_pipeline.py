@@ -170,7 +170,7 @@ os.makedirs(run)
 os.replace(t + "/g.npz", run + "/graph.npz")
 os.replace(t + "/w.npz", run + "/walks.npz")
 open(run + "/out.config.json", "w").write(c.to_json())
-assert telomeri_tpu_torch.gap_report.main([run]) == 0
+assert telomeri_tpu_torch.gap_report.main([run, "--device", "cpu"]) == 0
 print("JAX_LOADED" if "jax" in sys.modules else "JAX_ABSENT")
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -241,11 +241,14 @@ def test_cuda_kernels_match_plain_versions():
     dev = torch.device("cuda")
     geom = [torch.from_numpy(rng.integers(-3000, 2**31 - 1, 100_003).astype(np.int32)).to(dev)
             for _ in range(8)]
-    for outputs in (4, 2):
-        want = scoring.score_overlaps_torch(*geom, outputs=outputs)
-        got = scoring.score_overlaps_cuda(*geom, outputs=outputs)
-        for a, b in zip(want, got):
-            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for offset in (0, 1, 3):   # whole tensors take the 16-byte kernel, offset views the 4-byte
+        views = [a[offset:] for a in geom]
+        for outputs in (4, 2):
+            want = scoring.score_overlaps_torch(*views, outputs=outputs)
+            got = scoring.score_overlaps_cuda(*views, outputs=outputs)
+            for a, b in zip(want, got):
+                assert b.is_contiguous() and b.shape == a.shape
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     # a random packed table: rows of 0..K edges, some dead (all-zero weights)
     n, k, h = 800, 48, 64
     deg = rng.integers(0, k + 1, n)

@@ -22,6 +22,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from test_torch_dist import assert_records_equal
 
 from telomeri_tpu.config import ScaffoldConfig
@@ -185,9 +186,15 @@ def _gap_reports(data_dir: str, cfg: ScaffoldConfig, run) -> tuple[str, str]:
                  save_graph_path=str(run / "graph.npz"), save_walks_path=str(run / "walks.npz"))
     (run / "out.fa.config.json").write_text(cfg.to_json())
     got, want = io.StringIO(), io.StringIO()
-    gap_report.diagnose(str(run), out=got)
+    gap_report.diagnose(str(run), out=got, device="cpu")
     _reference_tool().diagnose(str(run), out=want)
     return got.getvalue(), want.getvalue()
+
+
+def _gap_report_cli(*args: str):
+    return subprocess.run([sys.executable, "-m", "telomeri_tpu_torch.gap_report", *args],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
 
 
 def test_gap_report_on_a_missed_gap_matches_reference_tool(rescue_data, tmp_path):
@@ -198,14 +205,32 @@ def test_gap_report_on_a_missed_gap_matches_reference_tool(rescue_data, tmp_path
     assert got == want
     report = json.loads(got)
     assert report["bridged"] == 2 and len(report["missed"]) == 1
-    proc = subprocess.run([sys.executable, "-m", "telomeri_tpu_torch.gap_report", str(run)],
-                          capture_output=True, text=True, timeout=300, cwd=ROOT,
-                          env=dict(os.environ, PYTHONPATH=ROOT))
+    proc = _gap_report_cli(str(run), "--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout == want
+    if not torch.cuda.is_available():   # the card is the default, and is never emulated
+        for args in ([str(run)], ["--device", "cuda", str(run)]):
+            proc = _gap_report_cli(*args)
+            assert proc.returncode not in (0, None) and proc.stdout == ""
+            assert "--device cuda: torch sees no CUDA device (use --device cpu)" in proc.stderr
 
 
 def test_gap_report_on_chimera_matches_reference_tool(chimera_data, tmp_path):
     got, want = _gap_reports(chimera_data, CHIMERA_CFG, tmp_path / "run")
     assert got == want
     assert [d["gap"] for d in json.loads(got)["missed"]] == [0]   # the dropout gap
+
+
+def test_gap_report_needs_a_card_unless_asked_for_the_cpu(tmp_path):
+    """diagnose() defaults to the card and raises without one, before it reads
+    the run directory; main() says what the CLI says and returns 1."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gap_report.diagnose(str(tmp_path / "absent"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gap_report.diagnose(str(tmp_path / "absent"), device="cuda")
+    assert gap_report.main([str(tmp_path / "absent")]) == 1
+    assert gap_report.main(["--device", "cuda", str(tmp_path / "absent")]) == 1
+    with pytest.raises(SystemExit):
+        gap_report.main([str(tmp_path / "absent"), "--device", "tpu"])

@@ -108,7 +108,7 @@ os.makedirs(run)
 os.replace(t + "/g.npz", run + "/graph.npz")
 os.replace(t + "/w.npz", run + "/walks.npz")
 open(run + "/out.config.json", "w").write(c.to_json())
-assert gap_report.main([run]) == 0
+assert gap_report.main([run, "--device", "cpu"]) == 0
 sim = t + "/sim"
 assert cli(["simulate", "--out", sim, "--genome-len", "40000", "--repeat-len", "2000",
             "--coverage", "10", "--seed", "3"]) == 0
