@@ -66,8 +66,40 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              consensus replayed on the card) on the card's artifacts of the
              missed gap printing the same report as `diagnose(device="cuda")`
              in this process on the CPU's
+  8 bench    telomeri_tpu_torch.bench in this process: the host oracle (its
+             budget cut from 18 s to 6 s), the small (about 49.6k walks) and the
+             peak (about 1.57M walks) batch with the walk stage's split (greedy
+             section, walk-scan kernel, event resolution), the 2-output scoring
+             kernel at 64M rows, and the whole-human-scale table (6,291,456
+             nodes, 9.66 GB; a smaller N, printed, where the host's memory does
+             not allow it). Launch counts are zeroed before each part and read
+             after it, and each part's own count stands in its row of the
+             kernels line. After each part its kernel is held to its plain
+             version at the part's shape and on the part's inputs, every walk
+             or row by its bits, and timed there (kernel_times): the walk scan
+             on the small and the peak cell's MC section and on the
+             whole-human-scale table (row offsets past 2**31 words), the
+             2-output scoring kernel on the bench's tiled 64M-row geometry
+  9 chunked  the E. coli plan through run_walks_host and the pipeline's consensus
+             unchunked and with max_walk_batch 8192 (records back on the host,
+             summarized chunk by chunk): records and consensus bit-equal, and
+             the peak device memory of the walk stage and of the consensus for
+             both
+ 10 dryrun   `python -m telomeri_tpu_torch.dryrun --device cuda` at a world of 1
+             (and of 2 with two cards): device rescoring -> rebuilt walk table
+             -> sharded walks -> gathered consensus -> FASTA, equal across one
+             device, the replicated mesh and the row-sharded placement
+ 11 multi_card  with two or more cards: `scaffold --mesh 2` started with no
+             launcher, with --save-walks; FASTA byte-identical to phase 5's and
+             the saved records equal to the one-device artifact's. With one
+             card it prints that this was not run and why
+ 12 native   `python -m telomeri_tpu_torch.native.build` (g++), then the E. coli
+             CLI run in a fresh process with parser_backend == "native": FASTA
+             byte-identical to phase 5's (the Python parsers), parse_paf and
+             load_sequences seconds of both
 Then neither telomeri_tpu nor jax may be in sys.modules; the kernels' summary
-line (time, plain time and bound of each), and last {"ok": true, "device": {...}}.
+line (time, plain time, bound and launches of each on the E. coli scaffold
+path, then of each bench part's kernel at that part's shape), and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1065,6 +1097,288 @@ def phase_scenarios(tmp: str, tandem_dir: str) -> None:
          walk_scan_launches=scan_launches, seconds=round(time.perf_counter() - t0, 3))
 
 
+BENCH_CELLS = (("small", 4096), ("peak", 131072))   # MC walks per contig end
+PEAK_ABOVE = 2**20      # the widest batch the scan was held to its plain version before
+ORACLE_BUDGET_S = 6.0   # the bench's own default is 18 s
+BENCH_SCORING_ROWS = 64_000_000   # the bench's own default
+
+
+def _bench_scan_row(results: dict, part: str, launches: dict, wide, pd, seed, s, n_anchors,
+                    iters: int):
+    """The walk-scan kernel at one bench part's shape and inputs: every walk's
+    records and resolved walk bit-equal to the plain version's, then its
+    kernel_times; the kernels-line row "walk_scan@bench_<part>" with that
+    part's own launch count. Returns (max abs err, the resolved walks)."""
+    from telomeri_tpu_torch.kernels import walk_scan
+
+    w = int(pd.start.shape[0])
+    kern, err, res = _scan_equals_plain(f"bench {part}", wide, pd, seed, s, n_anchors)
+    t = kernel_times(lambda: walk_scan.walk_scan_cuda(wide, pd.start, pd.uid, seed, s),
+                     lambda: _plain_scan(wide, pd.start, pd.uid, seed, s),
+                     _scan_bound(kern, wide, pd, s), iters)
+    results[f"walk_scan@bench_{part}"] = dict(max_abs_err=err, launches=launches["walk_scan"],
+                                              path=f"bench {part}", **t)
+    emit("walk_scan", graph=f"bench_{part}", walks=w, max_steps=s, h=wide.shape[1] // 6,
+         nodes=int(wide.shape[0]), walks_checked=w, bitwise_equal_to_plain=True,
+         walks_per_s=w / (t["ms"] / 1e3), **t)
+    return err, res
+
+
+def phase_bench(results: dict) -> None:
+    """The bench's parts through telomeri_tpu_torch.bench, each with its own
+    kernel launch count (zeroed before the part, read after it; comparisons
+    with the plain versions not counted), and each part's kernel held to its
+    plain version at the shape and on the inputs the part gave it."""
+    import torch
+
+    from telomeri_tpu_torch import bench
+    from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts, scoring
+    from telomeri_tpu_torch.walk import engine
+
+    t_phase = time.perf_counter()
+    label = bench.device_label(torch.device(DEVICE))
+    counts: dict = {}
+
+    def counted(part: str, kernel: str, fn):
+        reset_launch_counts()
+        out = fn()
+        counts[part] = launch_counts()
+        require(counts[part][kernel] > 0, f"bench {part} never launched {kernel}: {counts[part]}")
+        return out
+
+    cfg, _, graph, plan = bench.build_problem(BENCH_CELLS[0][1], device_scoring="off",
+                                              device=DEVICE)
+    oracle = bench.bench_oracle(cfg, graph, plan, budget_s=ORACLE_BUDGET_S)
+    emit("bench_oracle", walks_per_s=oracle[0], steps_per_s=oracle[1],
+         budget_s=ORACLE_BUDGET_S, budget_cut_from_s=18.0, rows=len(bench.oracle_rows(plan)))
+    cells = {}
+    for cell, mc in BENCH_CELLS:
+        if cell == "peak":
+            cfg, edges, graph, plan = bench.build_problem(mc, device=DEVICE)
+        walks_per_s, steps_per_s, split = counted(
+            cell, "walk_scan", lambda: bench.bench_walks(cfg, graph, plan, 5, DEVICE))
+        line = bench.emit(walks_per_s, steps_per_s, oracle, plan.n_active, label)
+        cells[cell] = line["value"]
+        emit("bench", cell=cell, mc_walks_per_end=mc,
+             table_mb=engine.device_table_bytes(graph) / 1e6,
+             sections=plan.sections, split_ms=split, launches=counts[cell], **line)
+        # the cell's MC section, as bench_walks ran it: every walk against the plain scan
+        gd, pd = _mc_inputs(graph, plan, DEVICE)
+        require(cell != "peak" or pd.start.shape[0] > PEAK_ABOVE,
+                f"the peak MC section has {pd.start.shape[0]} walks, no more than {PEAK_ABOVE}")
+        _bench_scan_row(results, cell, counts[cell], gd.wide, pd, cfg.mc_seed, cfg.max_steps,
+                        graph.n_anchors, 5 if cell == "small" else 3)
+        del gd, pd
+        torch.cuda.empty_cache()
+    require(cells["peak"] > cells["small"], f"the peak batch is no faster than the small: {cells}")
+
+    # the scoring bench on its own tiled geometry, then the kernel there against
+    # its plain version
+    geom = bench.tiled_geometry(edges, BENCH_SCORING_ROWS, DEVICE)
+    sc = counted("scoring", "score_os_es2", lambda: bench.bench_scoring(edges, 5, DEVICE, geom=geom))
+    require(sc["rows"] == int(geom[0].shape[0]), f"bench_scoring scored {sc['rows']} rows")
+    got = scoring.score_overlaps_cuda(*geom, outputs=2)
+    plain = scoring.score_overlaps_torch(*geom, outputs=2)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(k, p) for k, p in zip(got, plain))
+    for c, k, p in zip(("os", "es2"), got, plain):
+        require(same_bits(k, p), f"bench scoring, {sc['rows']} rows, {c}: kernel != plain "
+                                 f"(max abs err {err})")
+    del got, plain
+    t = kernel_times(lambda: scoring.score_overlaps_cuda(*geom, outputs=2),
+                     lambda: scoring.score_overlaps_torch(*geom, outputs=2),
+                     _scoring_bound(sc["rows"], 2), 5)
+    results["score_os_es2@bench_scoring"] = dict(
+        max_abs_err=err, launches=counts["scoring"]["score_os_es2"], path="bench scoring", **t)
+    emit("bench_scoring", rows=sc["rows"], burst_ms=sc["ms"], overlaps_per_s=sc["overlaps_per_s"],
+         host_numpy_overlaps_per_s=sc["host_overlaps_per_s"], bitwise_equal_to_plain=True,
+         burst_timing="one pair of CUDA events around a burst of 10 wrapper calls (warm)",
+         launches=counts["scoring"], device=label, **t)
+    del geom
+    torch.cuda.empty_cache()
+
+    # the whole-human-scale table, at the largest N the host's memory allows
+    n = bench.HG002_N
+    free = bench.host_memory_available()
+    while free is not None and n > 2**16 and free < bench.hg002_host_bytes(n):
+        n //= 2
+    gd, pd = bench.hg002_problem(DEVICE, n)
+    line = counted("hg002", "walk_scan", lambda: bench.hg002_walks(gd, pd, DEVICE))
+    words = int(gd.wide.shape[0]) * int(gd.wide.shape[1])
+    err, res = _bench_scan_row(results, "hg002", counts["hg002"], gd.wide, pd, 1,
+                               bench.SYNTH_STEPS, bench.SYNTH_ANCHORS, 5)
+    emit("bench_hg002", full_size=n == bench.HG002_N, table_words=words,
+         offsets_past_int32=words > 2**31, host_memory_available_gib=None if free is None
+         else free / 2**30, bitwise_equal_to_plain=True, max_abs_err=err,
+         successful=int(res.success.sum()), launches=counts["hg002"], **line)
+    del gd, pd, res
+    torch.cuda.empty_cache()
+    emit("bench_done", launches=counts, seconds=round(time.perf_counter() - t_phase, 3))
+
+
+def phase_chunked(ecoli_dir: str) -> None:
+    """Does the chunked path keep the bound on device memory that max_walk_batch
+    exists for, through the consensus too?"""
+    import dataclasses
+
+    import torch
+
+    from telomeri_tpu_torch.pipeline import ScaffoldConfig, _consensus
+    from telomeri_tpu_torch.walk.engine import device_table_bytes, run_walks_host
+
+    base_cfg = ScaffoldConfig(device_scoring="on")
+    _, graph, plan = _build(ecoli_dir, base_cfg)
+    out = {}
+    for name, batch in (("unchunked", base_cfg.max_walk_batch), ("chunked", 8192)):
+        cfg = dataclasses.replace(base_cfg, max_walk_batch=batch)
+        require((batch < len(plan)) == (name == "chunked"), f"{name}: plan of {len(plan)} rows")
+        row = dict(max_walk_batch=batch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for stage in ("run_walks", "consensus"):
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if stage == "run_walks":
+                walks = run_walks_host(graph, plan, cfg, DEVICE)
+            else:
+                cons = _consensus(walks, plan, graph, cfg, DEVICE)
+            torch.cuda.synchronize()
+            row[stage] = dict(seconds=round(time.perf_counter() - t0, 4),
+                              held_before_mb=held / 1e6,
+                              peak_mb=torch.cuda.max_memory_allocated() / 1e6)
+        row["records_mb"] = sum(a.numel() * a.element_size() for a in walks) / 1e6
+        row["records_on"] = str(walks.nodes.device)
+        out[name] = (row, walks.to_numpy(), cons)   # off the card before the next run
+        del walks
+    (_, w0, c0), (_, w1, c1) = out["unchunked"], out["chunked"]
+    for f, a, b in zip(w0._fields, w0, w1):
+        require(same_bits(torch.from_numpy(a), torch.from_numpy(b)),
+                f"chunked walks differ from unchunked in {f}")
+    for f, a, b in zip(c0._fields, c0, c1):
+        require((a is None and b is None) or same_bits(torch.from_numpy(a), torch.from_numpy(b)),
+                f"chunked consensus differs from unchunked in {f}")
+    emit("chunked", plan_rows=len(plan), table_mb=device_table_bytes(graph) / 1e6,
+         records_identical=True, consensus_identical=True,
+         **{k: v[0] for k, v in out.items()})
+
+
+def _run_module(module: str, args: list[str], timeout: int = 600, env: dict | None = None):
+    """`python -m module args` from the checkout, in its own process group
+    (killed whole on a timeout); (stdout, stderr)."""
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    require(proc.returncode == 0, f"python -m {module} {' '.join(args)} exited "
+                                  f"{proc.returncode}:\n{err[-4000:]}")
+    return out, err
+
+
+def phase_dryrun() -> None:
+    import torch
+
+    worlds = [n for n in (1, 2) if n <= torch.cuda.device_count()]
+    for n in worlds:
+        t0 = time.perf_counter()
+        out, _ = _run_module("telomeri_tpu_torch.dryrun", ["--device", DEVICE, "--mesh", str(n)])
+        summary = json.loads(out.strip().splitlines()[-1])["dryrun"]
+        require(summary["devices"] == n and summary["successful"] > 0 and
+                summary["fasta_bytes"] > 0, f"dry run at a world of {n}: {summary}")
+        for k in PATH_KERNELS:   # rank 0's launches: its shard's MC block, its rescoring
+            require(summary["launches"][k] > 0, f"dry run at a world of {n} never launched {k}")
+        emit("dryrun", seconds=round(time.perf_counter() - t0, 3), **summary)
+    emit("dryrun_done", ok=True, worlds=worlds,
+         not_run=None if 2 in worlds else "a world of 2 needs two cards; this machine has one")
+
+
+def _walks_by_uid(path: str) -> dict:
+    """A walks artifact's active rows in uid order."""
+    import numpy as np
+
+    with np.load(path, allow_pickle=False) as z:
+        keep = np.flatnonzero(z["plan_active"])
+        order = keep[np.argsort(z["plan_uid"][keep], kind="stable")]
+        return {f: z[f][order] for f in z.files if f != "header"}
+
+
+def phase_multi_card(ecoli_dir: str, tmp: str) -> None:
+    """`scaffold --mesh 2` with no launcher and --save-walks on two cards."""
+    import numpy as np
+    import torch
+
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        emit("multi_card", ran=False, devices=n_dev,
+             why="the self-launched --mesh 2 and --save-walks on a mesh need two cards; the "
+                 "CPU tests run both on gloo worlds of 2")
+        return
+    out, walks = os.path.join(tmp, "self_mesh2.fa"), os.path.join(tmp, "self_mesh2_walks.npz")
+    args = ["scaffold", "--device", DEVICE, "--device-scoring", "on", "--mesh", "2",
+            "--out", out, "--save-walks", walks]
+    for flag, f in zip(("--contigs", "--reads", "--paf-read-contig", "--paf-read-read"), INPUTS):
+        args += [flag, os.path.join(ecoli_dir, f)]
+    launcher = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
+    require(not any(k in os.environ for k in launcher), "chip_smoke itself runs under a launcher")
+    t0 = time.perf_counter()
+    _, err = _run_module("telomeri_tpu_torch.cli.main", args,
+                         env=dict(TELOMERI_CACHE=out + ".cache"))
+    require("--save-walks skipped" not in err, "--save-walks was skipped on a one-host mesh")
+    require(_read(out) == _read(os.path.join(ecoli_dir, "scaffolds.fa")),
+            "self-launched --mesh 2: FASTA differs from phase 5's")
+    one, got = _walks_by_uid(os.path.join(tmp, "mesh_walks.npz")), _walks_by_uid(walks)
+    require(sorted(one) == sorted(got), "walks artifacts hold different arrays")
+    for f in one:
+        a, b = one[f], got[f]
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        require(a.shape == b.shape and bool((a == b).all()),
+                f"--save-walks on a mesh of 2: {f} differs from the one-device artifact")
+    with open(out + ".metrics.json") as f:
+        m = json.load(f)
+    emit("multi_card", ran=True, devices=n_dev, launcher="none: the CLI started its 2 ranks",
+         fasta_identical=True, saved_walks_identical=True, walks=int(len(got["plan_uid"])),
+         walk_stage_s=m["timings_s"]["run_walks"], wall_s=round(time.perf_counter() - t0, 3))
+
+
+def phase_native(ecoli_dir: str) -> None:
+    """The port's C++ parsers on this host: built with g++, then the E. coli
+    run again in a fresh process, against phase 5's run with the Python parsers."""
+    t0 = time.perf_counter()
+    _run_module("telomeri_tpu_torch.native.build", [], timeout=300)
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(ecoli_dir, "scaffolds.fa.metrics.json")) as f:
+        py = json.load(f)
+    require(py["metrics"]["parser_backend"] == "python",
+            f"phase 5 ran with the {py['metrics']['parser_backend']} parsers")
+    out = os.path.join(ecoli_dir, "native.fa")
+    args = ["scaffold", "--device", DEVICE, "--device-scoring", "on", "--out", out]
+    for flag, f in zip(("--contigs", "--reads", "--paf-read-contig", "--paf-read-read"), INPUTS):
+        args += [flag, os.path.join(ecoli_dir, f)]
+    t0 = time.perf_counter()
+    _run_module("telomeri_tpu_torch.cli.main", args, env=dict(TELOMERI_CACHE=out + ".cache"))
+    wall = time.perf_counter() - t0
+    with open(out + ".metrics.json") as f:
+        nat = json.load(f)
+    require(nat["metrics"]["parser_backend"] == "native",
+            f"after the build the run used the {nat['metrics']['parser_backend']} parsers")
+    require(_read(out) == _read(os.path.join(ecoli_dir, "scaffolds.fa")),
+            "the native parsers' FASTA differs from the Python parsers'")
+    stages = ("parse_paf", "load_sequences")
+    emit("native", ok=True, build_s=round(build_s, 3), fasta_identical=True,
+         python_s={k: py["timings_s"][k] for k in stages},
+         native_s={k: nat["timings_s"][k] for k in stages},
+         native_process_wall_s=round(wall, 3),
+         note="python: phase 5's run in this warm process; native: a fresh process")
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1079,6 +1393,11 @@ def main(argv: list[str]) -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    # a native parser library left by an earlier run: phases 3-7 run with the
+    # Python parsers, as a fresh checkout does, and phase 12 builds it anew
+    native = os.path.join(ROOT, "build", "telomeri_tpu_torch", "libtelomeri_native.so")
+    if os.path.exists(native):
+        os.remove(native)
     ecoli_dir, tandem_dir = os.path.join(work, "ecoli"), os.path.join(work, "sim_tandem")
     results: dict = {}
     try:
@@ -1090,19 +1409,31 @@ def main(argv: list[str]) -> int:
         counts = phase_ecoli(ecoli_dir)
         phase_mesh(ecoli_dir, work)
         phase_scenarios(work, tandem_dir)
+        phase_bench(results)
+        phase_chunked(ecoli_dir)
+        phase_dryrun()
+        phase_multi_card(ecoli_dir, work)
+        phase_native(ecoli_dir)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     loaded = sorted(m for m in ("telomeri_tpu", "jax") if m in sys.modules)
     require(not loaded, f"the port's run imported {loaded}")
 
     kernels = []
-    for name in SOURCES:   # each at the main path's (E. coli) shape, from phases 2 and 3
+    # each kernel at the scaffold path's (E. coli) shape, from phases 2 and 3,
+    # with that run's launch count; then the bench's parts from phase 8, each
+    # at its own shape with its own part's count
+    shapes = [(name, f"{name}@ecoli" if name == "walk_scan" else f"{name}@{ECOLI_EDGES}")
+              for name in SOURCES]
+    shapes += [(key.split("@")[0], key) for key in results if "@bench_" in key]
+    for name, key in shapes:
         src, replaces = SOURCES[name]
-        t = results[f"{name}@ecoli" if name == "walk_scan" else f"{name}@{ECOLI_EDGES}"]
+        t = results[key]
         # ms: device time with the L2 flushed; library_ms: no single PyTorch call
         # computes either function
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=counts[name], launches_per_run=counts[name],
+        kernels.append(dict(name=name, shape=key.split("@")[1], route="cuda", source=src,
+                            replaces=replaces, path=t.get("path", "scaffold E. coli"),
+                            launches=t.get("launches", counts[name]),
                             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
                             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
                             ms_warm=t["ms_warm"], wrapper_host_us=t["wrapper_host_us"]))

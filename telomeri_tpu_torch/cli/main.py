@@ -4,6 +4,7 @@
       --paf-read-read rr.paf --out scaffolds.fa [--device cuda|cpu] [--config cfg.json] \
       [--graph G | --save-graph G] [--walks W | --save-walks W] [--trace DIR] \
       [ScaffoldConfig flags]
+  telomeri-tpu-torch scaffold --mesh N ...     (starts its N ranks itself)
   torchrun --nproc-per-node N -m telomeri_tpu_torch.cli.main scaffold --mesh N ...
   telomeri-tpu-torch simulate --out DIR [--preset P] [SimConfig flags]
   telomeri-tpu-torch validate --scaffolds S.fa --genome G.fa [--agp FILE] ...
@@ -13,8 +14,11 @@
 plus --device: "cuda" (the default) runs the device stages and the
 hand-written kernels on the GPU and fails when there is none; "cpu" runs their
 plain torch versions. --mesh N shards the walks over N devices, one process
-each, so it runs under torchrun with N processes (NCCL for cuda, gloo for cpu);
---mesh 1 also runs as one plain process. As in the reference, the resolved
+each (NCCL for cuda, gloo for cpu): under torchrun with N processes it joins
+that world; without a launcher the command starts the N ranks itself, by
+running its own command line again under `python -m torch.distributed.run
+--standalone --nproc-per-node N`, and returns their exit code. --mesh 1 runs as
+one plain process. As in the reference, the resolved
 config and the stage metrics are written next to the FASTA (<out>.config.json,
 <out>.metrics.json), once per host. simulate, validate and stats are host-only
 and take the reference CLI's arguments; they import neither torch nor the
@@ -29,6 +33,7 @@ import os
 import sys
 
 from telomeri_tpu_torch.config import ScaffoldConfig
+from telomeri_tpu_torch.utils.launch import check_devices_or_launch
 from telomeri_tpu_torch.utils.logging import Metrics, log, setup_logging
 
 
@@ -96,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--walks", help="resume: load walk-table artifact (.npz)")
     s.add_argument("--save-walks", help="save walk-table artifact (.npz)")
     s.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="shard walks over N devices, one torchrun process each "
+                   help="shard walks over N devices, one process each, started "
+                        "here unless a launcher (torchrun) already did "
                         "(0 = single device)")
     s.add_argument("--trace", metavar="DIR",
                    help="write a torch.profiler trace of the walk stage to DIR")
@@ -208,7 +214,10 @@ def main(argv: list[str] | None = None) -> int:
         parser.error("--paf-read-contig and --paf-read-read are required unless "
                      "resuming from --graph")
 
-    import torch
+    rc = check_devices_or_launch(parser, args.device, args.mesh, "telomeri_tpu_torch.cli.main",
+                                 sys.argv[1:] if argv is None else argv)
+    if rc is not None:
+        return rc
 
     from telomeri_tpu_torch.dist.mesh import (
         init_distributed,
@@ -217,8 +226,6 @@ def main(argv: list[str] | None = None) -> int:
     )
     from telomeri_tpu_torch.pipeline import run_pipeline
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        parser.error("--device cuda: torch sees no CUDA device (use --device cpu)")
     cfg = _config_from_args(args)
     metrics = Metrics()
     mesh = None

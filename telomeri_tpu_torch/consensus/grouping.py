@@ -227,17 +227,111 @@ def group_and_select(
         distinct=seg_distinct, win_distinct=win_distinct)
 
 
+def summarize_in_chunks(res, uid: torch.Tensor, virtual_base: int | None, chunk: int,
+                        device) -> WalkSummary:
+    """summarize over records that lie off `device` (host tensors or numpy),
+    `chunk` walks at a time: each chunk is uploaded, summarized and dropped, so
+    the device holds one chunk's records and the whole plan's summaries. A
+    summary is per walk, so the result equals summarize over all records."""
+    parts = []
+    for lo in range(0, int(uid.shape[0]), chunk):
+        rows = type(res)(*[torch.as_tensor(a[lo:lo + chunk]).to(device) for a in res])
+        parts.append(summarize(rows, uid[lo:lo + chunk], virtual_base=virtual_base))
+    return WalkSummary(*[None if cols[0] is None else torch.cat(cols) for cols in zip(*parts)])
+
+
+def summary_consensus(summary: WalkSummary, cfg, support: str) -> ConsensusResult:
+    """group_and_select over a whole plan's summary under cfg's (a
+    ScaffoldConfig) grouping rules with the given support; host numpy."""
+    return group_and_select(
+        summary, group_window=cfg.group_window, min_support=cfg.min_group_support,
+        grouping=cfg.grouping, support=support).to_numpy()
+
+
 def walk_consensus(res, uid: torch.Tensor, cfg, *, virtual_base: int | None,
                    support: str, gather=None) -> ConsensusResult:
-    """summarize, then group_and_select under cfg's (a ScaffoldConfig) grouping
-    rules with the given support; host numpy. gather, where given, maps this
+    """summarize, then summary_consensus. gather, where given, maps this
     process's summary to the whole plan's (dist/mesh.py gather_summary)."""
     summary = summarize(res, uid, virtual_base=virtual_base)
     if gather is not None:
         summary = gather(summary)
-    return group_and_select(
-        summary, group_window=cfg.group_window, min_support=cfg.min_group_support,
-        grouping=cfg.grouping, support=support).to_numpy()
+    return summary_consensus(summary, cfg, support)
+
+
+def oracle_interior_key(nodes_row, steps_i: int, virtual_base: int):
+    """EXACT canonical interior-path key of one walk (the scalar mirror of
+    path_signature's hashed one): min(interior, mirror) over the hop-stripped
+    interior node tuple. Used by the oracle and the cut-read gate tests."""
+    interior = tuple(int(x) for x in nodes_row[1:steps_i]
+                     if 0 <= x < virtual_base)
+    mirror = tuple(x ^ 1 for x in reversed(interior))
+    return min(interior, mirror)
+
+
+def consensus_oracle(
+    s: WalkSummary, n_anchors: int, group_window: int, min_support: int,
+    grouping: str = "windowed", support: str = "walk_count",
+    nodes: np.ndarray | None = None, steps: np.ndarray | None = None,
+    virtual_base: int | None = None,
+) -> list[dict]:
+    """Scalar python reference of rules 1-6: the rows compress() gives for
+    group_and_select on the same summary (tensors or host arrays).
+
+    support="read_diverse" needs the walk records (nodes, steps, virtual_base)
+    and counts distinct (path_len, exact canonical interior) per group — an
+    independent, hash-free mirror of the device's (path_len, sig) key, so the
+    parity test also certifies the hash has no collisions on its inputs."""
+    by_pair: dict[tuple[int, int], list[int]] = {}
+    start = np.asarray(s.start); term = np.asarray(s.terminal)
+    succ = np.asarray(s.success); plen = np.asarray(s.path_len)
+    score = np.asarray(s.score_sum); uid = np.asarray(s.uid)
+    diverse = support == "read_diverse"
+    if diverse and (nodes is None or steps is None or virtual_base is None):
+        raise ValueError("read_diverse oracle needs nodes/steps/virtual_base")
+    for i in range(len(start)):
+        if not succ[i]:
+            continue
+        a, b = int(start[i]), int(term[i])
+        cand = min((a, b), (b ^ 1, a ^ 1))
+        by_pair.setdefault(cand, []).append(i)
+
+    def n_units(walks: list[int]) -> int:
+        if not diverse:
+            return len(walks)
+        return len({(int(plen[i]),
+                     oracle_interior_key(nodes[i], int(steps[i]), virtual_base))
+                    for i in walks})
+
+    out = []
+    for (a, b), members in sorted(by_pair.items()):
+        # groups keyed by bucket index (fixed) or group min path length (windowed)
+        if grouping == "fixed":
+            buckets: dict[int, list[int]] = {}
+            for i in members:
+                buckets.setdefault(int(plen[i]) // group_window, []).append(i)
+        else:
+            members = sorted(members, key=lambda i: int(plen[i]))
+            buckets = {}
+            cur_key = None
+            prev_len = None
+            for i in members:
+                li = int(plen[i])
+                if prev_len is None or li - prev_len > group_window:
+                    cur_key = li            # group's min length
+                buckets.setdefault(cur_key, []).append(i)
+                prev_len = li
+        # rule 4 winner by RAW count; rule 6 gate by distinct units
+        bk = min(buckets, key=lambda k: (-len(buckets[k]), k))
+        walks = buckets[bk]
+        if n_units(walks) < min_support:
+            continue
+        rep = min(walks, key=lambda i: (-score[i], uid[i]))
+        row = dict(pair=(a, b), count=len(walks), bucket=bk,
+                   rep_uid=int(uid[rep]), rep_score=float(score[rep]))
+        if diverse:
+            row["distinct"] = n_units(walks)
+        out.append(row)
+    return out
 
 
 def compress(c: ConsensusResult) -> list[dict]:

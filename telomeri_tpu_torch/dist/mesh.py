@@ -1,7 +1,8 @@
 """Walks sharded over several devices with torch.distributed: the port of telomeri_tpu/dist/mesh.py.
 
 One process per device, launched by torchrun (`torchrun --nproc-per-node N -m
-telomeri_tpu_torch.cli.main scaffold --mesh N ...`). A WalkMesh takes the place
+telomeri_tpu_torch.cli.main scaffold --mesh N ...`) or by the CLI itself, which
+starts the N ranks when `--mesh N` finds no launcher. A WalkMesh takes the place
 of the reference's 1-D jax.sharding.Mesh: the process group, this process's
 rank, the world size, the rank on its host and the device. NCCL joins CUDA
 devices, gloo CPU processes.
@@ -116,6 +117,13 @@ def make_walk_mesh(n_devices: int | None = None, device="cuda") -> WalkMesh:
         device = torch.device("cuda", local_rank)
     return WalkMesh(group=dist.group.WORLD, rank=rank, size=size,
                     local_rank=local_rank, device=device)
+
+
+def spans_hosts(mesh: WalkMesh) -> bool:
+    """True where the world has ranks on another host: more ranks than this
+    host runs (the launcher's LOCAL_WORLD_SIZE; a world joined without a
+    launcher is taken to be on one host)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", mesh.size)) < mesh.size
 
 
 # --- plan layout -------------------------------------------------------------------

@@ -41,13 +41,19 @@ from telomeri_tpu_torch.utils.logging import Metrics, log
 from telomeri_tpu_torch.utils.watchdog import DispatchWatch
 from telomeri_tpu_torch.walk.plan import WalkPlan, plan_walks
 from telomeri_tpu_torch.consensus.evidence import read_diversity_gate
-from telomeri_tpu_torch.consensus.grouping import compress, walk_consensus
+from telomeri_tpu_torch.consensus.grouping import (
+    compress,
+    summarize,
+    summarize_in_chunks,
+    summary_consensus,
+)
 from telomeri_tpu_torch.dist.mesh import (
     ShardedWalks,
     WalkMesh,
     count_walks,
     fetch_walk_rows,
     run_walks_distributed,
+    spans_hosts,
 )
 from telomeri_tpu_torch.graph.tensorize import tensorize
 from telomeri_tpu_torch.io.artifacts import load_graph, load_walks, save_graph, save_walks
@@ -186,10 +192,17 @@ def _resolve_placement(cfg: ScaffoldConfig, graph: GraphTensors, mesh: WalkMesh 
 
 def _consensus(walks: WalkResult, plan: WalkPlan, graph: GraphTensors,
                cfg: ScaffoldConfig, device):
-    """Consensus of records on `device` (or host records, uploaded there)."""
-    walks = WalkResult(*[torch.as_tensor(a) for a in walks]).to(device)
-    return walk_consensus(walks, torch.from_numpy(plan.uid), cfg,
-                          virtual_base=graph.virtual_base, support=cfg.support_mode)
+    """Consensus of records on `device`, or of host records, uploaded there: all
+    at once, or, for a plan that ran in chunks (above cfg.max_walk_batch rows),
+    chunk by chunk, so that the consensus keeps the bound on device memory
+    that the chunked walk stage kept."""
+    walks = WalkResult(*[torch.as_tensor(a) for a in walks])
+    uid = torch.from_numpy(plan.uid)
+    if walks.nodes.device.type == "cpu" and 0 < cfg.max_walk_batch < len(plan):
+        summary = summarize_in_chunks(walks, uid, graph.virtual_base, cfg.max_walk_batch, device)
+    else:
+        summary = summarize(walks.to(device), uid, virtual_base=graph.virtual_base)
+    return summary_consensus(summary, cfg, cfg.support_mode)
 
 
 def run_pipeline(
@@ -286,14 +299,17 @@ def run_pipeline(
                 walks = walks_dev.to_numpy()
             del walks_dev
         if save_walks_path:
-            if mesh is not None and mesh.size > 1:
+            if mesh is not None and spans_hosts(mesh):
                 log.warning("--save-walks skipped: records are sharded across "
-                            "processes; rerun single-process to save them")
-            elif writes:
+                            "hosts; rerun on one host to save them")
+            else:
                 with metrics.stage("save_walks_artifact"):
+                    # a collective on a mesh: every rank joins the fetch of all
+                    # rows, rank 0 writes the one file
                     host = (fetch_walk_rows(walks, np.arange(len(plan)), mesh)
                             if isinstance(walks, ShardedWalks) else walks)
-                    save_walks(save_walks_path, plan, host, cfg)
+                    if mesh is None or mesh.rank == 0:
+                        save_walks(save_walks_path, plan, host, cfg)
 
     if isinstance(walks, ShardedWalks):
         n_succ, n_trunc = count_walks(walks, cfg.max_steps, mesh)

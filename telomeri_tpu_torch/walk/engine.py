@@ -475,11 +475,12 @@ def run_walks_chunked(gd: GraphDev, plan: WalkPlan, seed, *, n_anchors: int,
 def run_walks_host(g: GraphTensors, plan: WalkPlan, cfg: ScaffoldConfig,
                    device) -> WalkResult:
     """Single-device wrapper: host tables in, records on `device` out. Plans
-    larger than cfg.max_walk_batch run in chunks (run_walks_chunked)."""
+    larger than cfg.max_walk_batch run in chunks (run_walks_chunked) and their
+    records come back as host tensors: the device never holds more than one
+    chunk of them (pipeline.py _consensus summarizes them chunk by chunk)."""
     gd = graph_to_device(g, device)
     if 0 < cfg.max_walk_batch < len(plan):
-        res = run_walks_chunked(gd, plan, cfg.mc_seed, n_anchors=g.n_anchors,
-                                max_steps=cfg.max_steps, max_batch=cfg.max_walk_batch)
-        return res.to(device)
+        return run_walks_chunked(gd, plan, cfg.mc_seed, n_anchors=g.n_anchors,
+                                 max_steps=cfg.max_steps, max_batch=cfg.max_walk_batch)
     return run_walks_sectioned(gd, plan, cfg.mc_seed, n_anchors=g.n_anchors,
                                max_steps=cfg.max_steps)

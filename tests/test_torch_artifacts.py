@@ -160,3 +160,65 @@ def test_cli_resumes_lambda_graph_without_paf_flags(tmp_path):
             assert "load_graph_artifact" in json.load(f)["timings_s"]
     with pytest.raises(SystemExit):   # without --graph the PAF flags stay required
         cli_main(common + ["--out", str(tmp_path / "x.fa")])
+
+
+def _active_by_uid(path: str) -> dict:
+    """A walks artifact's active rows in uid order: plan and record arrays."""
+    with np.load(path, allow_pickle=False) as z:
+        keep = np.flatnonzero(z["plan_active"])
+        order = keep[np.argsort(z["plan_uid"][keep], kind="stable")]
+        return {f: z[f][order] for f in z.files if f != "header"}
+
+
+def test_save_walks_on_a_one_host_mesh(toy_dataset_dir, tmp_path):
+    """A gloo world of 2 on one host saves the records (every rank joins the
+    fetch, rank 0 writes): the one-device artifact's arrays, walk by walk, and
+    both packages resume from it to the direct run's FASTA."""
+    from test_torch_dist import run_cli
+
+    cfg = RefConfig(mc_walks_per_end=50, max_steps=32, rescue_walks_per_end=200)
+    args = _paths(toy_dataset_dir)
+    one_fa, one_w = str(tmp_path / "one.fa"), str(tmp_path / "one_walks.npz")
+    run_pipeline(*args, one_fa, interop.config_from_reference(cfg), save_walks_path=one_w,
+                 device="cpu")
+    mesh_fa, gp, wp = (str(tmp_path / f) for f in ("mesh.fa", "g.npz", "w.npz"))
+    flags = ["--mc-walks-per-end", "50", "--max-steps", "32", "--rescue-walks-per-end", "200"]
+    proc = run_cli([], ["scaffold", "--device", "cpu", "--mesh", "2", "--contigs", args[0],
+                        "--reads", args[1], "--paf-read-contig", args[2],
+                        "--paf-read-read", args[3], "--out", mesh_fa, "--save-graph", gp,
+                        "--save-walks", wp, *flags], str(tmp_path / "cache"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "--save-walks skipped" not in proc.stderr
+    assert _bytes(mesh_fa) == _bytes(one_fa)
+    with open(mesh_fa + ".metrics.json") as f:
+        assert "save_walks_artifact" in json.load(f)["timings_s"]
+    one, got = _active_by_uid(one_w), _active_by_uid(wp)
+    assert sorted(one) == sorted(got) and len(one["plan_uid"]) > 0
+    for f in one:
+        a, b = one[f], got[f]
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(b, a, err_msg=f)
+    out_port, out_ref = str(tmp_path / "port.fa"), str(tmp_path / "ref.fa")
+    run_pipeline(args[0], args[1], None, None, out_port, interop.config_from_reference(cfg),
+                 graph_artifact=gp, walks_artifact=wp, device="cpu")
+    ref_run_pipeline(args[0], args[1], None, None, out_ref, cfg, graph_artifact=gp,
+                     walks_artifact=wp)
+    assert _bytes(out_port) == _bytes(one_fa) and _bytes(out_ref) == _bytes(one_fa)
+
+
+def test_save_walks_skipped_only_across_hosts(monkeypatch):
+    """The reference skips where jax.process_count() > 1: a world with ranks on
+    another host. One host's world, however large, saves."""
+    import torch
+
+    from telomeri_tpu_torch.dist.mesh import WalkMesh, spans_hosts
+
+    mesh = WalkMesh(None, 0, 8, 0, torch.device("cpu"))
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert not spans_hosts(mesh)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "8")
+    assert not spans_hosts(mesh)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert spans_hosts(mesh)

@@ -77,11 +77,26 @@ def test_group_and_select_matches_reference_and_oracle(rng, grouping_mode, suppo
         np.testing.assert_array_equal(b, a, err_msg=f)
     rows = grouping.compress(got)
     assert rows == ref.compress(want) and rows
-    oracle = ref.consensus_oracle(
-        _ref_summary(d, vb), n_anchors=4, group_window=250, min_support=2,
-        grouping=grouping_mode, support=support, nodes=d["nodes"], steps=d["steps"],
-        virtual_base=vb)
+    okw = dict(n_anchors=4, group_window=250, min_support=2, grouping=grouping_mode,
+               support=support, nodes=d["nodes"], steps=d["steps"], virtual_base=vb)
+    # the port's consensus against the port's own oracle, and that oracle
+    # against the reference's on the same summaries
+    oracle = grouping.consensus_oracle(_port_summary(d, vb), **okw)
     assert rows == oracle
+    assert oracle == ref.consensus_oracle(_ref_summary(d, vb), **okw)
+
+
+def test_oracle_interior_key_matches_reference(rng):
+    d, vb = random_walks(rng)
+    for row, steps in zip(d["nodes"], d["steps"]):
+        assert (grouping.oracle_interior_key(row, int(steps), vb)
+                == ref.oracle_interior_key(row, int(steps), vb))
+
+
+def test_oracle_needs_records_for_read_diverse(rng):
+    d, vb = random_walks(rng, n=20)
+    with pytest.raises(ValueError, match="nodes/steps/virtual_base"):
+        grouping.consensus_oracle(_port_summary(d, vb), 4, 250, 2, support="read_diverse")
 
 
 def test_empty_and_all_failed_summaries(rng):
@@ -92,3 +107,45 @@ def test_empty_and_all_failed_summaries(rng):
     empty = {k: v[:0] for k, v in d.items()}
     c = grouping.group_and_select(_port_summary(empty, vb), **kw)
     assert c.valid.shape == (0,) and c.win_distinct.shape == (0,)
+
+
+@pytest.mark.parametrize("support", ["walk_count", "read_diverse"])
+def test_consensus_of_a_chunked_plan_is_unchanged(toy_dataset_dir, support):
+    """A plan above max_walk_batch rows comes back from run_walks_host as host
+    records, and the consensus summarizes them chunk by chunk (the device then
+    holds one chunk's records): every field of the ConsensusResult equals the
+    unchunked run's, and the summary equals summarize over all records."""
+    import dataclasses
+    import os
+
+    from telomeri_tpu_torch.config import ScaffoldConfig
+    from telomeri_tpu_torch.pipeline import _consensus, build_graph, load_inputs
+    from telomeri_tpu_torch.walk.engine import run_walks_host
+    from telomeri_tpu_torch.walk.plan import plan_walks
+
+    inputs = [os.path.join(toy_dataset_dir, f)
+              for f in ("contigs.fa", "reads.fa", "read2contig.paf", "read2read.paf")]
+    cfg = ScaffoldConfig(mc_walks_per_end=24, max_steps=16, support_mode=support)
+    _, graph = build_graph(*load_inputs(*inputs), cfg, device="cpu")
+    plan = plan_walks(graph, cfg)
+    chunked_cfg = dataclasses.replace(cfg, max_walk_batch=50)
+    assert len(plan) > 3 * 50 and len(plan) % 50   # several chunks and a ragged tail
+    whole = run_walks_host(graph, plan, cfg, "cpu")
+    parts = run_walks_host(graph, plan, chunked_cfg, "cpu")
+    want = _consensus(whole, plan, graph, cfg, "cpu")
+    for walks in (parts, parts.to_numpy()):   # host tensors, and an artifact's numpy records
+        got = _consensus(walks, plan, graph, chunked_cfg, "cpu")
+        for f, a, b in zip(want._fields, want, got):
+            if a is None:
+                assert b is None, f
+                continue
+            if a.dtype == np.float32:
+                a, b = a.view(np.int32), b.view(np.int32)
+            np.testing.assert_array_equal(b, a, err_msg=f)
+    assert grouping.compress(want)
+    uid = torch.from_numpy(plan.uid)
+    one = grouping.summarize(whole, uid, graph.virtual_base)
+    many = grouping.summarize_in_chunks(parts, uid, graph.virtual_base, 50, "cpu")
+    for f, a, b in zip(one._fields, one, many):
+        assert torch.equal(a, b), f
+    assert grouping.summarize_in_chunks(parts, uid, None, 50, "cpu").sig is None

@@ -291,3 +291,103 @@ def test_world_of_one_without_launcher(monkeypatch):
         tmesh.shutdown_distributed()
     with pytest.raises(RuntimeError, match="init_distributed"):
         tmesh.make_walk_mesh(1, "cpu")
+
+
+# --- the CLI's --mesh N with and without a launcher ---------------------------------
+
+LAMBDA = os.path.join(ROOT, "testdata", "lambda")
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT", "GROUP_RANK", "ROLE_RANK", "TORCHELASTIC_RUN_ID")
+
+
+def lambda_args(out: str) -> list[str]:
+    return ["scaffold", "--device", "cpu", "--config", os.path.join(LAMBDA, "config.json"),
+            "--contigs", os.path.join(LAMBDA, "contigs.fa"),
+            "--reads", os.path.join(LAMBDA, "reads.fa"),
+            "--paf-read-contig", os.path.join(LAMBDA, "read2contig.paf"),
+            "--paf-read-read", os.path.join(LAMBDA, "read2read.paf"), "--out", out]
+
+
+def run_cli(prefix: list[str], args: list[str], cache: str, timeout: int = 240):
+    """`python [prefix] -m telomeri_tpu_torch.cli.main args` in a process that no
+    launcher started, with its own dispatch history."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1", TELOMERI_CACHE=cache)
+    return subprocess.run([sys.executable, *prefix, "-m", "telomeri_tpu_torch.cli.main", *args],
+                          capture_output=True, text=True, env=env, timeout=timeout)
+
+
+def metrics_besides_timing(path: str) -> dict:
+    with open(path) as f:
+        m = json.load(f)["metrics"]
+    m.pop("dispatches", None)   # seconds
+    return m
+
+
+def test_cli_mesh_two_starts_its_own_ranks(tmp_path):
+    """`scaffold --mesh 2 --device cpu` with no launcher: the FASTA and metrics
+    of the same command under torchrun, and the reference's --mesh 2 FASTA."""
+    from telomeri_tpu.cli.main import main as ref_cli
+
+    own, launched, ref = (str(tmp_path / f"{n}.fa") for n in ("own", "launched", "ref"))
+    proc = run_cli([], lambda_args(own) + ["--mesh", "2"], str(tmp_path / "cache_own"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    proc = run_cli(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2"],
+                   lambda_args(launched) + ["--mesh", "2"], str(tmp_path / "cache_launched"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert read_bytes(own) == read_bytes(launched)
+    assert metrics_besides_timing(own + ".metrics.json") == \
+        metrics_besides_timing(launched + ".metrics.json")
+    assert metrics_besides_timing(own + ".metrics.json")["device"] == "cpu"
+    ref_args = [a for a in lambda_args(ref) if a not in ("--device", "cpu")]
+    assert ref_cli(ref_args + ["--mesh", "2"]) == 0
+    assert read_bytes(own) == read_bytes(ref)
+    assert read_bytes(own) == read_bytes(os.path.join(LAMBDA, "golden_scaffolds.fa"))
+
+
+def test_cli_mesh_ranks_failure_is_the_exit_code(tmp_path):
+    """A rank that fails (a missing input) makes the self-launched run exit non-zero."""
+    args = lambda_args(str(tmp_path / "x.fa"))
+    args[args.index("--reads") + 1] = str(tmp_path / "no_such_reads.fa")
+    proc = run_cli([], args + ["--mesh", "2"], str(tmp_path / "cache"))
+    assert proc.returncode != 0
+    assert not os.path.exists(tmp_path / "x.fa")
+
+
+def test_cli_mesh_beyond_the_cards_is_a_parser_error(tmp_path, monkeypatch, capsys):
+    """--device cuda --mesh N above torch.cuda.device_count() says so, before
+    any rank starts."""
+    from telomeri_tpu_torch.cli.main import main as cli_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    args = lambda_args(str(tmp_path / "x.fa"))
+    args[args.index("cpu")] = "cuda"
+    with pytest.raises(SystemExit):
+        cli_main(args + ["--mesh", "2"])
+    assert "needs 2 CUDA devices" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cards, error", [(4, None), (2, "needs 4 CUDA devices on this host")])
+def test_mesh_device_check_under_a_launcher_counts_this_hosts_ranks(monkeypatch, capsys, cards,
+                                                                    error):
+    """Under a launcher the world may span hosts (--mesh 8 on 2 hosts of 4
+    cards): the check holds this host's ranks, not the world, against
+    torch.cuda.device_count(), and starts no ranks of its own."""
+    import argparse
+
+    from telomeri_tpu_torch.utils import launch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    monkeypatch.setattr(launch, "launch_ranks", lambda *a, **k: pytest.fail("started ranks"))
+    check = lambda: launch.check_devices_or_launch(
+        argparse.ArgumentParser(), "cuda", 8, "telomeri_tpu_torch.cli.main", [])
+    if error is None:
+        assert check() is None
+    else:
+        with pytest.raises(SystemExit):
+            check()
+        assert error in capsys.readouterr().err

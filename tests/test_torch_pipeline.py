@@ -143,7 +143,7 @@ import telomeri_tpu_torch.cli.main, telomeri_tpu_torch.interop, telomeri_tpu_tor
 import telomeri_tpu_torch.consensus.coherence, telomeri_tpu_torch.consensus.evidence
 import telomeri_tpu_torch.dist.mesh, telomeri_tpu_torch.dist.rowshard
 import telomeri_tpu_torch.io.artifacts, telomeri_tpu_torch.utils.profiling
-import telomeri_tpu_torch.walk.oracle, telomeri_tpu_torch.probe, telomeri_tpu_torch.gap_report
+import telomeri_tpu_torch.walk.oracle, telomeri_tpu_torch.bench, telomeri_tpu_torch.gap_report
 from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.dist.mesh import init_distributed, make_walk_mesh, shutdown_distributed
 from telomeri_tpu_torch.pipeline import run_pipeline
@@ -200,8 +200,9 @@ def test_chip_smoke_names_only_the_port():
 
 
 def test_probe_on_cpu():
-    """The timing probe's three parts at a small size on CPU tensors."""
-    from telomeri_tpu_torch import probe
+    """The timing probe's three parts (since folded into the bench:
+    BENCH_SCALE=ecoli-stages) at a small size on CPU tensors."""
+    from telomeri_tpu_torch import bench as probe
 
     runs = probe.pipeline_runs(LAMBDA, "cpu", runs=1)
     assert len(runs["wall_s"]) == 1 and runs["wall_s"][0] > 0

@@ -57,6 +57,8 @@ def test_no_source_file_imports_the_reference_or_jax():
     files = sorted(glob.glob(os.path.join(ROOT, "telomeri_tpu_torch", "**", "*.py"),
                              recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
     assert len(files) > 40
+    assert {"bench.py", "dryrun.py", "validate_scaffolds.py", "adopt_index.py", "launch.py"} <= \
+        {os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -74,8 +76,10 @@ def test_no_source_file_imports_the_reference_or_jax():
 def test_every_entry_point_leaves_the_reference_and_jax_unloaded(tmp_path):
     """One fresh interpreter: every module of the port imported, the lambda
     pipeline on one device and on a gloo world of 1 in both placements with
-    artifacts saved, resumed and traced, gap_report on them, and simulate,
-    stats, validate and scaffold through the CLI."""
+    artifacts saved, resumed and traced, gap_report on them, simulate, stats,
+    validate and scaffold through the CLI, then validate_scaffolds (with its
+    children), adopt_index, the dry run, the bench's parts and the consensus
+    oracle."""
     code = f"""
 import glob, importlib, json, os, sys
 root, d, t = {ROOT!r}, {LAMBDA!r}, {str(tmp_path)!r}
@@ -119,6 +123,22 @@ assert cli(["scaffold", "--device", "cpu", "--contigs", sim + "/contigs.fa",
             "--agp", sim + "/out.agp", "--mc-walks-per-end", "40"]) == 0
 assert cli(["validate", "--scaffolds", sim + "/out.fa", "--genome", sim + "/genome.fa",
             "--agp", sim + "/out.agp", "--index-cache", "off", "--jobs", "1"]) == 0
+from telomeri_tpu_torch import adopt_index, bench, dryrun, validate_scaffolds
+from telomeri_tpu_torch.consensus.grouping import consensus_oracle, summarize
+assert validate_scaffolds.main(["--scaffolds", sim + "/out.fa", "--genome", sim + "/genome.fa",
+                                "--sample", "1", "--jobs", "1"]) == 0
+assert os.path.exists(sim + "/out.fa.validate.json")
+assert adopt_index.main([sim + "/genome.fa", sim + "/genome.k24.idx", "--samples", "2000"]) == 0
+assert dryrun.main(["--device", "cpu"]) == 0
+bcfg, bedges, bgraph, bplan = bench.build_problem(2, device="cpu")
+bench.bench_oracle(bcfg, bgraph, bplan, budget_s=0.5, max_walks=6)
+bench.bench_walks(bcfg, bgraph, bplan, 1, "cpu")
+bench.bench_scoring(bedges, 1, "cpu", rows=1000)
+from telomeri_tpu_torch.walk.engine import run_walks_host
+import torch
+res = run_walks_host(bgraph, bplan, bcfg, "cpu")
+assert consensus_oracle(summarize(res, torch.from_numpy(bplan.uid)), bgraph.n_anchors,
+                        bcfg.group_window, bcfg.min_group_support)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("telomeri_tpu", "jax", "jaxlib"))
 print("LOADED", loaded)
 """
