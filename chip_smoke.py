@@ -6,7 +6,9 @@ port still builds, agrees with itself and scaffolds on the card).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   0 device   needs torch.cuda; prints nvidia-smi's name and power limit
-  1 build    nvcc builds csrc/*.cu for sm_90a from the checkout
+  1 build    nvcc builds csrc/*.cu for sm_90a from the checkout; then the
+             latency of one dependent load, an L2 hit and a device-memory load
+             (csrc/chase_probe.cu), for the greedy scan's chain bound
   2 scoring  both scoring kernels (4 and 2 outputs) bitwise equal to the plain
              torch version on the card and to the numpy oracle, n = 1 .. 64M
              (3, 5, 127 and 1,000,003 rows end in the scalar tail) and on
@@ -18,20 +20,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              wrapper's host time per call, the plain version's time and the
              bound
   3 walks    simulates the E. coli preset (reused by phase 5) and the tandem
-             array (reused by phase 7); on the lambda and E. coli graphs the
-             fused walk-scan kernel's records and resolved walks are bitwise
-             equal to its plain version (the torch draw table, then the plain
-             scan) on the card and on the CPU; kernel (device time, as in phase
-             2) and plain times beside the bound, also at the rescue round's
-             batch cap; the rescore kernel on the E. coli edges against the
-             host's scores, and the rescore stage's split (upload, kernel,
-             download, whole) as the package uploads and as one stacked
-             transfer; the E. coli MC
-             section part by part (draw table, fused scan, event resolution:
-             ms and device launches each); the
-             kernel against its plain version at 48, 96 and odd step counts on
-             the tandem table, with rescue uids and negative seeds, and at
-             H = 128, 256 and 512 on synthetic hub rows
+             array (reused by phase 7); on the lambda and E. coli graphs and at
+             the rescue round's batch cap (2**20 walks) the three walk kernels
+             are bitwise equal to their plain versions on the card (and, on
+             lambda and E. coli, on the CPU): the fused walk scan's records (its
+             plain version: the torch draw table, then the plain scan), the
+             event resolution on them, the greedy scan on the greedy section and
+             on the whole plan as a mixed one (at the cap, on greedy and mixed
+             plans made from its starts); each kernel's time (device time, as
+             in phase 2) and its plain version's beside its bound; the rescore
+             kernel on the E. coli edges against the host's scores, and the
+             rescore stage's split (upload, kernel, download, whole) as the
+             package uploads and as one stacked transfer; the E. coli walk stage
+             part by part (draw table, fused scan, event resolution, greedy
+             section: ms and device launches each; the MC section is 2
+             launches); the three kernels against their plain versions at 48,
+             96, 512 (fewer walks a block) and odd step counts on the tandem
+             table, with rescue uids and
+             negative seeds, and at H = 128, 256 and 512 on synthetic hub rows
   4 lambda   run_pipeline on testdata/lambda with device scoring on the card:
              byte-identical to golden_scaffolds.fa, both path kernels launched
   5 ecoli    the CLI `scaffold --device cuda --device-scoring on` on the E. coli
@@ -42,16 +48,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              ... scaffold --mesh 1` on the same E. coli data, each FASTA
              byte-identical to phase 5's: replicated; (a) replicated with
              --save-graph, --save-walks and --trace (the trace must name the
-             walk-scan kernel: the launch counts of a torchrun child are out of
-             sight); (b) the
+             three walk kernels, and the walk stage is those kernels in a row,
+             with no per-step stream of small kernels: the launch counts of a
+             torchrun child are out of sight); (b) the
              row-sharded placement (NCCL all_gather / reduce_scatter every walk
              step), (c) resumed from (a)'s artifacts without the PAF files (the
              first two runs side by side, then (b) beside (c)); the walk
              stage's seconds of each run on its own line. Then lambda and
              E. coli through the library on a mesh of 1 (NCCL, this process) in
              both placements, byte-identical to golden_scaffolds.fa and phase 5,
-             the walk-scan kernel launched on the replicated mesh path and not
-             on the row-sharded one; and the per-step cost of the row-sharded fetch
+             the walk-scan and greedy-scan kernels launched on the replicated
+             mesh path and not on the row-sharded one (whose scans fetch rows
+             with collectives), the event resolution on both; and the per-step
+             cost of the row-sharded fetch
              against a local row gather on the E. coli MC section. With two
              (four) or more cards, both placements again at --nproc-per-node 2
              (and 4), byte-identical too.
@@ -60,8 +69,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              round off and on (polish on), each through run_pipeline on the card
              and on the CPU in this process: byte-identical FASTA, equal walk
              records (score_sum by its bits), representatives and counters; the
-             reference test's pairs; the walk-scan kernel launched in the 48-
-             and 96-step walk stages and more often with the rescue round on;
+             reference test's pairs; every path kernel launched in each run, the
+             walk scan more often with the rescue round on;
              `python -m telomeri_tpu_torch.gap_report --device cuda` (its
              consensus replayed on the card) on the card's artifacts of the
              missed gap printing the same report as `diagnose(device="cuda")`
@@ -69,17 +78,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   8 bench    telomeri_tpu_torch.bench in this process: the host oracle (its
              budget cut from 18 s to 6 s), the small (about 49.6k walks) and the
              peak (about 1.57M walks) batch with the walk stage's split (greedy
-             section, walk-scan kernel, event resolution), the 2-output scoring
+             section, walk-scan kernel, event resolution; the first and the
+             last one device launch each), the 2-output scoring
              kernel at 64M rows, and the whole-human-scale table (6,291,456
              nodes, 9.66 GB; a smaller N, printed, where the host's memory does
              not allow it). Launch counts are zeroed before each part and read
              after it, and each part's own count stands in its row of the
-             kernels line. After each part its kernel is held to its plain
-             version at the part's shape and on the part's inputs, every walk
+             kernels line. After each part its kernels are held to their plain
+             versions at the part's shape and on the part's inputs, every walk
              or row by its bits, and timed there (kernel_times): the walk scan
-             on the small and the peak cell's MC section and on the
-             whole-human-scale table (row offsets past 2**31 words), the
-             2-output scoring kernel on the bench's tiled 64M-row geometry
+             and the event resolution on the small and the peak cell's MC
+             section and on the whole-human-scale table (row offsets past 2**31
+             words), the greedy scan on the small and the peak cell's greedy
+             section, the 2-output scoring kernel on the bench's tiled 64M-row
+             geometry
   9 chunked  the E. coli plan through run_walks_host and the pipeline's consensus
              unchunked and with max_walk_batch 8192 (records back on the host,
              summarized chunk by chunk): records and consensus bit-equal, and
@@ -117,15 +129,21 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LAMBDA = os.path.join(ROOT, "testdata", "lambda")
 INPUTS = ("contigs.fa", "reads.fa", "read2contig.paf", "read2read.paf")
-SOURCES = {
+SOURCES = {   # for the walk kernels with no Pallas twin: the reference function they replace
     "walk_scan": ("telomeri_tpu_torch/csrc/walk_scan.cu",
                   "telomeri_tpu/kernels/walk_vmem.py:61"),
+    "greedy_scan": ("telomeri_tpu_torch/csrc/greedy_scan.cu",
+                    "telomeri_tpu/walk/engine.py:401"),
+    "resolve_events": ("telomeri_tpu_torch/csrc/walk_events.cu",
+                       "telomeri_tpu/walk/engine.py:313"),
     "score_os_es2": ("telomeri_tpu_torch/csrc/scoring.cu",
                      "telomeri_tpu/kernels/scoring.py:86"),
     "score_overlaps": ("telomeri_tpu_torch/csrc/scoring.cu",
                        "telomeri_tpu/kernels/scoring.py:65"),
 }
-PATH_KERNELS = ("walk_scan", "score_os_es2")   # what the scaffold path launches
+WALK_KERNELS = ("greedy_scan", "walk_scan", "resolve_events")   # the walk stage, in order
+PATH_KERNELS = (*WALK_KERNELS, "score_os_es2")   # what the scaffold path launches
+FIELDS = ("nodes", "eids", "steps", "success", "terminal", "path_len", "score_sum")
 DEVICE = "cuda"
 ECOLI_EDGES = 552_256   # the main path's scoring shape (phase 3 checks the count)
 # the timed shapes first: they are timed before this process first profiles
@@ -207,7 +225,7 @@ def kernel_names(fn, kernel: str) -> set[str]:
     """Names of the device kernels containing `kernel` that fn() launched, as
     torch.profiler (CUPTI) names them on the card. Used to name a launch, never
     to time or count it: device records can go missing in this process (the
-    host's launch records do not, and _device_launches counts those), so a
+    host's launch records do not, and bench.device_launches counts those), so a
     window in which none arrived is run again."""
     from torch.autograd import DeviceType
 
@@ -373,6 +391,43 @@ def phase_build() -> None:
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=round(build.build_seconds, 3), library=os.path.relpath(path, ROOT),
          ptxas=ptxas)
+    LOAD_NS.update(load_latency_ns())
+    emit("load_latency", **LOAD_NS, probe="telomeri_tpu_torch/csrc/chase_probe.cu",
+         note="one thread following a random cycle: 2**18 int32 (L2 hits after a first "
+              "pass), 2**27 int32 (512 MiB, device memory); mean ns a hop")
+
+
+LOAD_NS: dict = {}   # phase_build's dependent-load latencies, for the greedy chain bound
+
+
+def load_latency_ns() -> dict:
+    """ns of one dependent load on the card, by csrc/chase_probe.cu (one thread
+    following a random cycle through an int32 array): over 2**18 entries (1
+    MiB, L2 hits after an untimed full pass) and over 2**27 (512 MiB, ten L2s:
+    each timed run follows a part of the cycle no earlier run touched, so every
+    hop is a device-memory load); the mean over the hops of 3 timed runs."""
+    import torch
+
+    from telomeri_tpu_torch.kernels import build
+
+    lib = build.load()
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    out = {}
+    for name, n, hops in (("l2_ns", 2**18, 2**18), ("hbm_ns", 2**27, 2**17)):
+        perm = torch.randperm(n, device=DEVICE, generator=gen)
+        nxt = torch.empty(n, dtype=torch.int32, device=DEVICE)
+        nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+        end = torch.empty(1, dtype=torch.int32, device=DEVICE)
+        starts = perm[::hops].tolist()   # parts of the cycle, one a run
+        starts = iter(starts[:1] * 4 if name == "l2_ns" else starts)   # L2: all of it, each run
+
+        def chase():
+            build.check(lib.telomeri_chase(nxt.data_ptr(), next(starts), hops, end.data_ptr(),
+                                           torch.cuda.current_stream().cuda_stream), "chase")
+
+        out[name] = cuda_ms(chase, 3) * 1e6 / hops
+        del perm, nxt
+    return out
 
 
 def _geometry(rng, n: int):
@@ -475,9 +530,7 @@ def phase_scoring(results: dict) -> None:
 def _mc_inputs(graph, plan, device):
     from telomeri_tpu_torch.walk import engine
 
-    lo, hi = plan.sections["mc"]
-    pd = engine.plan_to_device(engine._slice_plan(plan, lo, hi), device)
-    return engine.graph_to_device(graph, device), pd
+    return engine.graph_to_device(graph, device), _section(plan, "mc", device)
 
 
 def _plain_scan(wide, start, uid, seed, s):
@@ -488,14 +541,40 @@ def _plain_scan(wide, start, uid, seed, s):
     return walk_scan.walk_scan_torch(wide, start, engine.stable_bits_table(seed, uid, s), s)
 
 
+def _outputs_equal(name: str, kern, plain) -> float:
+    """Seven WalkResult fields of a kernel and of its plain version equal by
+    their bits (after a synchronize); the max abs err over them."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for a, b in zip(kern, plain))
+    for f, a, b in zip(FIELDS, kern, plain):
+        require(a.dtype == b.dtype and same_bits(a, b),
+                f"{name}: {f} differs from the plain version (max abs err {err})")
+    return err
+
+
+def _resolve_equals_plain(name, pd, recs, s, n_anchors, n_nodes):
+    """The event-resolution kernel against its plain version on the same
+    records; (max abs err, the kernel's walks)."""
+    from telomeri_tpu_torch.kernels import walk_events
+    from telomeri_tpu_torch.walk.engine import WalkResult
+
+    kern = walk_events.resolve_events_cuda(pd.start, pd.active, *recs, n_anchors=n_anchors,
+                                           max_steps=s)
+    plain = walk_events.resolve_events_torch(pd.start, pd.active, *recs, n_nodes=n_nodes,
+                                             n_anchors=n_anchors, max_steps=s)
+    return _outputs_equal(f"{name} resolve_events", kern, plain), WalkResult(*kern)
+
+
 def _scan_equals_plain(name, wide, pd, seed, s, n_anchors):
-    """The fused kernel's records and the walks resolved from them, held by
-    their bits against the plain version's on the card; (kernel records, max
-    abs err, resolved walks)."""
+    """The fused kernel's records held by their bits against the plain
+    version's on the card, then the event-resolution kernel on them against
+    its plain version; (kernel records, scan max abs err, resolved walks,
+    resolution max abs err)."""
     import torch
 
     from telomeri_tpu_torch.kernels import walk_scan
-    from telomeri_tpu_torch.walk import engine
 
     kern = walk_scan.walk_scan_cuda(wide, pd.start, pd.uid, seed, s)
     plain = _plain_scan(wide, pd.start, pd.uid, seed, s)
@@ -503,22 +582,32 @@ def _scan_equals_plain(name, wide, pd, seed, s, n_anchors):
     err = max_abs_err(kern, plain)
     require(same_bits(kern, plain), f"{name}: walk-scan records differ from the plain scan "
                                     f"(max abs err {err})")
-    resolve = lambda r: engine.resolve_mc_events(
-        pd, *r, n_nodes=int(wide.shape[0]), n_anchors=n_anchors, max_steps=s)
-    res_k, res_p = resolve(kern), resolve(plain)
-    for f, a, b in zip(res_k._fields, res_k, res_p):
-        require(same_bits(a, b), f"{name}: resolved {f} differs (card)")
-    return kern, err, res_k
+    del plain
+    res_err, res = _resolve_equals_plain(name, pd, kern, s, n_anchors, int(wide.shape[0]))
+    return kern, err, res, res_err
 
 
-def _device_launches(fn) -> int:
-    """Device kernels that one call of fn() launches: the kernel-launch calls
-    (cudaLaunchKernel, cuLaunchKernel and their variants) that torch.profiler
-    records on the host's side; copies and memsets are other calls."""
-    fn()
-    n = sum(1 for e in _profiled(fn) if "LaunchKernel" in e.name or "LaunchCooperative" in e.name)
-    require(n > 0, "torch.profiler saw no kernel launch")
-    return n
+def _greedy_equals_plain(name, wide, pd, seed, s, n_anchors, kind):
+    """The greedy-scan kernel against its plain loop (local fetch) on the card;
+    (max abs err, the kernel's walks)."""
+    from telomeri_tpu_torch.kernels import greedy_scan
+    from telomeri_tpu_torch.walk.engine import WalkResult
+
+    kern = greedy_scan.greedy_scan_cuda(wide, pd, seed, n_anchors, s, kind)
+    plain = greedy_scan.greedy_scan_torch(wide, pd, seed, n_anchors, s, kind)
+    return _outputs_equal(f"{name} greedy_scan {kind}", kern, plain), WalkResult(*kern)
+
+
+def _greedy_plans(pd, h: int):
+    """A greedy and a mixed plan on an MC section's starts and uids: greedy
+    walks by OS and by ES in turn, every third one with a forced first edge
+    (some past the row's H slots); mixed adds MC walks (first_edge -1)."""
+    import torch
+
+    i = torch.arange(pd.start.shape[0], dtype=torch.int32, device=pd.start.device)
+    first = torch.where(i % 3 == 0, (i // 3) % (h + 4), -1).to(torch.int32)
+    return (pd._replace(mode=i % 2, first_edge=first),
+            pd._replace(mode=i % 3, first_edge=torch.where(i % 3 == 2, -1, first)))
 
 
 def _scan_bound(kern, wide, pd, s) -> dict:
@@ -540,6 +629,59 @@ def _scan_bound(kern, wide, pd, s) -> dict:
     return dict(_bound(n_bytes, w * s * (h + 60)), rows_visited=rows, picks=picks)
 
 
+def _walk_output_bytes(w: int, s: int) -> int:
+    """nodes (S+1) and eids (S) int32, steps, terminal, path_len int32,
+    score_sum float32 and success one byte, for w walks."""
+    return w * ((2 * s + 1) * 4 + 17)
+
+
+def _resolve_bound(res, pd, s) -> dict:
+    """The least time for this event resolution, from this run's data: start
+    and active read once; per active walk nxt and total up to and including its
+    first event and eid, adv and es of its taken steps; the outputs written
+    once. Beside it the all-planes count: every record read once."""
+    import torch
+
+    w = int(pd.start.shape[0])
+    steps = res.steps.long()
+    reads = torch.where(pd.active, torch.where(res.success, steps, torch.clamp(steps + 1, max=s)),
+                        0)
+    out = _walk_output_bytes(w, s)
+    n_bytes = 5 * w + 8 * int(reads.sum()) + 12 * int(steps.sum()) + out
+    all_planes = 5 * w + 5 * 4 * w * s + out
+    return dict(_bound(n_bytes, int((reads * (reads + 1) // 2).sum())),
+                all_planes_bytes=all_planes,
+                all_planes_bound_ms=all_planes / HBM_BYTES_PER_S * 1e3)
+
+
+def _greedy_bound(res, pd, h: int, s: int) -> dict:
+    """The least time for this greedy section (modes 0 and 1), from this run's
+    data, by bytes and operations: start, first_edge, mode and active read once
+    (13 B a walk); the nbr block of every distinct row a walk fetched, and the
+    OS key block of every distinct row a mode-0 walk fetched; eid, adv and es of
+    every distinct edge taken; the outputs written once; H slot tests against
+    each path entry so far at every step run. Beside it chain_ms: a walk's row
+    fetches form a chain (the next row is the node just picked), so no walk
+    ends before its steps run x one L2 hit's latency (LOAD_NS, this run's),
+    counting one dependent load a step (the kernel makes two: the row, then
+    the picked words). The chain binds where chain_ms is the larger."""
+    import torch
+
+    w = int(pd.start.shape[0])
+    steps = res.steps.long()
+    ran = torch.where(pd.active, torch.clamp(steps + (~res.success).long(), max=s), 0)
+    fetched = torch.arange(s + 1, device=steps.device)[None, :] < ran[:, None]   # row of step t
+    rows = int(torch.unique(res.nodes[fetched]).numel())
+    os_rows = int(torch.unique(res.nodes[fetched & (pd.mode == 0)[:, None]]).numel())
+    edges = int(torch.unique(res.eids[res.eids >= 0]).numel())
+    n_bytes = 13 * w + (rows + os_rows) * h * 4 + 12 * edges + _walk_output_bytes(w, s)
+    chain = int(ran.max()) if w else 0
+    return dict(_bound(n_bytes, h * int((ran * (ran + 1) // 2).sum())), rows_fetched=rows,
+                os_rows_fetched=os_rows, edges_taken=edges, chain_steps=chain,
+                chain_ms=chain * LOAD_NS["l2_ns"] * 1e-6, l2_load_ns=LOAD_NS["l2_ns"],
+                hbm_load_ns=LOAD_NS["hbm_ns"])
+
+
 def _build(data_dir: str, cfg):
     from telomeri_tpu_torch.pipeline import build_graph, load_inputs, plan_walks
 
@@ -548,52 +690,94 @@ def _build(data_dir: str, cfg):
     return edges, graph, plan_walks(graph, cfg)
 
 
+def _section(plan, kind: str, device):
+    from telomeri_tpu_torch.walk import engine
+
+    lo, hi = plan.sections[kind]
+    return engine.plan_to_device(engine._slice_plan(plan, lo, hi), device)
+
+
 def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True,
                      split: bool = False) -> None:
-    """One graph's MC section: the fused kernel against its plain version (and
-    the CPU), its time beside the plain version's and its bound, and the whole
-    section's time. split: also the section part by part, with launch counts."""
-    from telomeri_tpu_torch.kernels import walk_scan
+    """One graph's walk stage: the fused scan and the event resolution on the
+    MC section, the greedy scan on the greedy section and the whole plan as a
+    mixed one (or, for an all-MC plan, on _greedy_plans of it), each kernel
+    against its plain version (and the CPU), with its time beside the plain
+    version's and its bound, and the MC section's time. split: also the
+    section part by part, with launch counts."""
+    from telomeri_tpu_torch.bench import device_launches
+    from telomeri_tpu_torch.kernels import greedy_scan, walk_events, walk_scan
     from telomeri_tpu_torch.walk import engine
 
     gd, pd = _mc_inputs(graph, plan, DEVICE)
-    s, seed, w = cfg.max_steps, cfg.mc_seed, pd.start.shape[0]
-    kern, err, res_k = _scan_equals_plain(name, gd.wide, pd, seed, s, graph.n_anchors)
+    s, seed, w, na = cfg.max_steps, cfg.mc_seed, pd.start.shape[0], graph.n_anchors
+    n_nodes = int(gd.wide.shape[0])
+    kern, err, res_k, res_err = _scan_equals_plain(name, gd.wide, pd, seed, s, na)
+    lo, hi = plan.sections["greedy"]
+    if hi > lo:
+        pg, pm = _section(plan, "greedy", DEVICE), engine.plan_to_device(plan, DEVICE)
+    else:
+        pg, pm = _greedy_plans(pd, gd.h)
+    g_err, g_res = _greedy_equals_plain(name, gd.wide, pg, seed, s, na, "greedy")
+    m_err, _ = _greedy_equals_plain(name, gd.wide, pm, seed, s, na, "mixed")
     if cpu_check:
         gd_c, pd_c = _mc_inputs(graph, plan, "cpu")
         cpu = walk_scan.walk_scan(gd_c.wide, pd_c.start, pd_c.uid, seed, s)
         require(same_bits(kern, cpu), f"{name}: walk-scan records differ from the CPU scan")
-        res_c = engine.resolve_mc_events(pd_c, *cpu, n_nodes=int(gd.wide.shape[0]),
-                                         n_anchors=graph.n_anchors, max_steps=s)
-        for f, a, b in zip(res_k._fields, res_k, res_c):
+        res_c = engine.resolve_mc_events(pd_c, *cpu, n_nodes=n_nodes, n_anchors=na, max_steps=s)
+        for f, a, b in zip(FIELDS, res_k, res_c):
             require(same_bits(a, b), f"{name}: resolved {f} differs (CPU)")
+        g_c = engine.run_walks_kind(gd_c, _section(plan, "greedy", "cpu"), seed, n_anchors=na,
+                                    max_steps=s, kind="greedy")
+        for f, a, b in zip(FIELDS, g_res, g_c):
+            require(same_bits(a, b), f"{name}: greedy {f} differs (CPU)")
     scan = lambda: walk_scan.walk_scan_cuda(gd.wide, pd.start, pd.uid, seed, s)
-    section = lambda: engine.run_walks_mc(gd, pd, seed, n_anchors=graph.n_anchors, max_steps=s)
+    resolve = lambda: walk_events.resolve_events_cuda(pd.start, pd.active, *kern, n_anchors=na,
+                                                      max_steps=s)
+    greedy = lambda: greedy_scan.greedy_scan_cuda(gd.wide, pg, seed, na, s, "greedy")
+    section = lambda: engine.run_walks_mc(gd, pd, seed, n_anchors=na, max_steps=s)
     t = kernel_times(scan, lambda: _plain_scan(gd.wide, pd.start, pd.uid, seed, s),
                      _scan_bound(kern, gd.wide, pd, s), 5)
+    t_res = kernel_times(resolve, lambda: walk_events.resolve_events_torch(
+        pd.start, pd.active, *kern, n_nodes=n_nodes, n_anchors=na, max_steps=s),
+        _resolve_bound(res_k, pd, s), 5)
+    t_greedy = kernel_times(greedy, lambda: greedy_scan.greedy_scan_torch(
+        gd.wide, pg, seed, na, s, "greedy"), _greedy_bound(g_res, pg, gd.h, s), 5)
     section_ms = cuda_ms(section, 5)
     results[f"walk_scan@{name}"] = dict(max_abs_err=err, **t)
-    emit("walk_scan", graph=name, walks=w, max_steps=s, h=gd.h, nodes=int(gd.wide.shape[0]),
+    results[f"resolve_events@{name}"] = dict(max_abs_err=res_err, **t_res)
+    results[f"greedy_scan@{name}"] = dict(max_abs_err=max(g_err, m_err), **t_greedy)
+    emit("walk_scan", graph=name, walks=w, max_steps=s, h=gd.h, nodes=n_nodes,
          table_mb=engine.device_table_bytes(graph) / 1e6,
          walks_per_s=w / (t["ms"] / 1e3), plain_walks_per_s=w / (t["plain_ms"] / 1e3),
          mc_section_ms=section_ms, mc_section_walks_per_s=w / (section_ms / 1e3),
          successful=int(res_k.success.sum()), cpu_checked=cpu_check, **t)
+    emit("resolve_events", graph=name, walks=w, max_steps=s, bitwise_equal_to_plain=True,
+         **t_res)
+    emit("greedy_scan", graph=name, walks=int(pg.start.shape[0]),
+         mixed_walks=int(pm.start.shape[0]), max_steps=s, h=gd.h, bitwise_equal_to_plain=["greedy", "mixed"],
+         from_the_plan=hi > lo, successful=int(g_res.success.sum()), **t_greedy)
     if not split:
         return
-    # the section part by part: the draw table and the event resolution in
-    # torch, as the section ran them before the draw moved into the kernel
+    # the section part by part: the draw table in torch, as the section ran it
+    # before the draw moved into the kernel
     draw = lambda: engine.stable_bits_table(seed, pd.uid, s)
-    resolve = lambda: engine.resolve_mc_events(
-        pd, *kern, n_nodes=int(gd.wide.shape[0]), n_anchors=graph.n_anchors, max_steps=s)
-    parts = {k: dict(ms=cuda_ms(fn, 10), launches=_device_launches(fn))
-             for k, fn in (("draw_table", draw), ("fused_scan", scan), ("resolve", resolve))}
-    require(parts["fused_scan"]["launches"] == 1,
-            f"{name}: the fused scan launched {parts['fused_scan']['launches']} device kernels")
+    parts = {k: dict(ms=cuda_ms(fn, 10), launches=device_launches(fn))
+             for k, fn in (("draw_table", draw), ("fused_scan", scan), ("resolve", resolve),
+                           ("greedy", lambda: engine.run_walks_kind(
+                               gd, pg, seed, n_anchors=na, max_steps=s, kind="greedy")))}
+    for k in ("fused_scan", "resolve", "greedy"):
+        require(parts[k]["launches"] == 1, f"{name}: {k} launched {parts[k]['launches']} "
+                                           "device kernels")
     emit("mc_split", graph=name, walks=w, max_steps=s, **{
         f"{k}_{m}": v for k, part in parts.items() for m, v in part.items()})
+    section_launches = device_launches(section)
+    require(section_launches == 2, f"{name}: the MC section launched {section_launches} "
+                                   "device kernels, not the scan and the resolution")
     emit("mc_section", graph=name, walks=w, max_steps=s, ms=cuda_ms(section, 10),
-         launches=_device_launches(section), fused_scan_ms=parts["fused_scan"]["ms"],
-         resolve_ms=parts["resolve"]["ms"], draw_table_ms_no_longer_run=parts["draw_table"]["ms"])
+         launches=section_launches, fused_scan_ms=parts["fused_scan"]["ms"],
+         resolve_ms=parts["resolve"]["ms"], greedy_section_ms=parts["greedy"]["ms"],
+         draw_table_ms_no_longer_run=parts["draw_table"]["ms"])
 
 
 def _synthetic_plan(rng, n_nodes: int, w: int, uid):
@@ -605,14 +789,15 @@ def _synthetic_plan(rng, n_nodes: int, w: int, uid):
     put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device=DEVICE, dtype=dt)
     return PlanDev(start=put(rng.integers(0, n_nodes, w), torch.int32),
                    first_edge=put(np.full(w, -1), torch.int32), mode=put(np.full(w, 2), torch.int32),
-                   uid=put(uid, torch.int32), active=put(np.ones(w, bool), torch.bool))
+                   uid=put(uid, torch.int32), active=put(rng.random(w) < 0.95, torch.bool))
 
 
 def _check_scan_shapes(tandem_dir: str) -> None:
-    """The fused kernel against its plain version where the main path's shapes
-    do not reach: 48, 96 and an odd number of steps on the tandem table, rescue
-    uids (>= 1 << 30), a negative seed, wider rows (H = 128, 256 and 512: hub
-    rows, the last through the kernel's looped path)."""
+    """The three walk kernels against their plain versions where the main
+    path's shapes do not reach: 48, 96, 512 and an odd number of steps on the
+    tandem table, rescue uids (>= 1 << 30), a negative seed, wider rows (H =
+    128, 256 and 512: hub rows, the last through the scan's looped path); the
+    greedy scan on _greedy_plans of each case, greedy and mixed."""
     import numpy as np
     import torch
 
@@ -621,16 +806,24 @@ def _check_scan_shapes(tandem_dir: str) -> None:
     from telomeri_tpu_torch.walk.rescue import RESCUE_UID_BASE
 
     checked = []
+
+    def check(name, wide, p, seed, s, n_anchors):
+        _, _, res, _ = _scan_equals_plain(name, wide, p, seed, s, n_anchors)
+        greedy = {}
+        for kind, plan in zip(("greedy", "mixed"), _greedy_plans(p, wide.shape[1] // 6)):
+            _, g = _greedy_equals_plain(name, wide, plan, seed, s, n_anchors, kind)
+            greedy[kind] = int(g.success.sum())
+        checked.append(dict(case=name, h=wide.shape[1] // 6, walks=int(p.start.shape[0]),
+                            successful=int(res.success.sum()), greedy_successful=greedy))
+
     _, graph, plan = _build(tandem_dir, ScaffoldConfig(**_CORRECTED, max_steps=48))
     gd, pd = _mc_inputs(graph, plan, DEVICE)
     rescue_uid = pd._replace(uid=pd.uid + RESCUE_UID_BASE)
-    for s, seed, p in ((48, 0, pd), (96, 0, pd), (33, 0, pd), (1, 0, pd), (48, 0, rescue_uid),
-                       (33, -7, rescue_uid), (32, -2**31, pd), (33, 5, rescue_uid), (48, 1, pd),
-                       (33, -1, rescue_uid)):
-        name = f"tandem S={s} seed={seed} uid0={int(p.uid[0])}"
-        _, _, res = _scan_equals_plain(name, gd.wide, p, seed, s, graph.n_anchors)
-        checked.append(dict(case=name, h=gd.h, walks=int(p.start.shape[0]),
-                            successful=int(res.success.sum())))
+    for s, seed, p in ((48, 0, pd), (96, 0, pd), (512, 3, pd), (33, 0, pd), (1, 0, pd),
+                       (48, 0, rescue_uid), (33, -7, rescue_uid), (32, -2**31, pd),
+                       (33, 5, rescue_uid), (48, 1, pd), (33, -1, rescue_uid)):
+        check(f"tandem S={s} seed={seed} uid0={int(p.uid[0])}", gd.wide, p, seed, s,
+              graph.n_anchors)
     rng = np.random.default_rng(4)
     for h, k in ((128, 100), (128, 128), (256, 200), (512, 300), (64, 64), (64, 40)):
         n, w = 4096, 20_000
@@ -642,10 +835,8 @@ def _check_scan_shapes(tandem_dir: str) -> None:
         wide = torch.from_numpy(pack_wide(nbr, cum, np.where(slot, rng.integers(0, 10**6, (n, k)), -1),
                                           np.where(slot, 3, 0), es, es, h)).to(DEVICE)
         uid = np.concatenate([np.arange(w // 2), RESCUE_UID_BASE + np.arange(w - w // 2)])
-        name = f"synthetic H={h} k={k}"
-        _, _, res = _scan_equals_plain(name, wide, _synthetic_plan(rng, n, w, uid), -3, 33, 8)
-        checked.append(dict(case=name, h=h, walks=w, successful=int(res.success.sum())))
-    emit("walk_scan_shapes", ok=True, bitwise_equal=checked)
+        check(f"synthetic H={h} k={k}", wide, _synthetic_plan(rng, n, w, uid), -3, 33, 8)
+    emit("walk_scan_shapes", ok=True, kernels=list(WALK_KERNELS), bitwise_equal=checked)
 
 
 def phase_walks(ecoli_dir: str, tandem_dir: str, results: dict) -> None:
@@ -886,9 +1077,12 @@ def _mesh_library_runs(mesh, tmp: str, ecoli_dir: str) -> None:
             counts = launch_counts()
             require(_read(out) == _read(want),
                     f"{name} on a mesh of 1 ({placement}) differs from {want}")
-            # the row-sharded MC section runs the plain scan (dist/rowshard.py)
-            require((counts["walk_scan"] > 0) == (placement == "replicated"),
-                    f"{name} mesh {placement}: walk_scan launched {counts['walk_scan']} times")
+            # the row-sharded scans run their plain versions with the collective
+            # fetch (dist/rowshard.py); the event resolution runs on the rank's card
+            for k in ("walk_scan", "greedy_scan"):
+                require((counts[k] > 0) == (placement == "replicated"),
+                        f"{name} mesh {placement}: {k} launched {counts[k]} times")
+            require(counts["resolve_events"] > 0, f"{name} mesh {placement}: no resolution launch")
             require(counts["score_os_es2"] > 0, f"{name} mesh {placement}: no rescore launch")
             emit("mesh_library", data=name, placement=placement, fasta_identical=True,
                  launches=counts, walk_stage_s=res.metrics.as_dict()["timings_s"]["run_walks"])
@@ -959,16 +1153,17 @@ def phase_mesh(ecoli_dir: str, tmp: str) -> None:
     kernels = [e["name"] for e in sorted(
         (e for e in json.loads(text)["traceEvents"] if e.get("cat") == "kernel"),
         key=lambda e: e["ts"])]
-    scans = [i for i, k in enumerate(kernels) if "walk_scan_kernel" in k]
-    require(bool(scans), "the replicated mesh trace never names walk_scan_kernel")
-    # before the scan: the greedy section's torch kernels, which neither shift nor
-    # xor as the draw table's do (after it, the consensus's path signatures do)
-    threefry = sorted({k for k in kernels[:scans[0]]
-                       if "shift" in k.lower() or "xor" in k.lower()})
-    require(not threefry, f"the walk stage still ran the torch draw table: {threefry}")
-    emit("mesh_trace", file=files[0], bytes=len(text), names_walk_scan_kernel=True,
-         device_kernels=len(kernels), kernels_before_the_scan=scans[0],
-         threefry_elementwise_kernels_before_the_scan=0)
+    # the walk stage is the three walk kernels in a row, as the reference's is
+    # one program: no per-step stream of elementwise kernels between them
+    at = {k: [i for i, name in enumerate(kernels) if f"{k}_kernel" in name] for k in WALK_KERNELS}
+    require(all(at.values()), f"the replicated mesh trace lacks walk kernels: "
+                              f"{ {k: len(v) for k, v in at.items()} }")
+    window = kernels[min(at["greedy_scan"]):max(at["resolve_events"]) + 1]
+    require(len(window) <= 2 * len(WALK_KERNELS),
+            f"the walk stage ran {len(window)} device kernels: {window[:12]}")
+    emit("mesh_trace", file=files[0], bytes=len(text), device_kernels=len(kernels),
+         walk_stage_kernels=len(window), walk_stage=window,
+         launches={k: len(v) for k, v in at.items()})
     run_pair(("b_rowshard", 1, "rowshard", paf),
              ("c_resume", 1, "replicated", ["--graph", graph_a, "--walks", walks_a]))
 
@@ -1068,8 +1263,7 @@ def phase_scenarios(tmp: str, tandem_dir: str) -> None:
         # and each of their walk-scan launches is the walk stage's
         rescued = "rescue_walks:R0" in d_card
         require(rescued == (name == "rescue_r1"), f"{name}: rescue round ran: {rescued}")
-        require(counts["walk_scan"] > 0 and counts["score_os_es2"] > 0,
-                f"{name}: kernel launches {counts}")
+        require(all(counts[k] > 0 for k in PATH_KERNELS), f"{name}: kernel launches {counts}")
         steps = card.walks.steps
         require(cfg.max_steps <= 32 or bool((steps > 32).any()),
                 f"{name}: no walk ran past 32 steps")
@@ -1103,24 +1297,54 @@ ORACLE_BUDGET_S = 6.0   # the bench's own default is 18 s
 BENCH_SCORING_ROWS = 64_000_000   # the bench's own default
 
 
-def _bench_scan_row(results: dict, part: str, launches: dict, wide, pd, seed, s, n_anchors,
-                    iters: int):
-    """The walk-scan kernel at one bench part's shape and inputs: every walk's
-    records and resolved walk bit-equal to the plain version's, then its
-    kernel_times; the kernels-line row "walk_scan@bench_<part>" with that
-    part's own launch count. Returns (max abs err, the resolved walks)."""
-    from telomeri_tpu_torch.kernels import walk_scan
+def _bench_walk_rows(results: dict, part: str, launches: dict, wide, pd, seed, s, n_anchors,
+                     iters: int, greedy_pd=None):
+    """The walk kernels at one bench part's shape and inputs: the scan's records
+    and the walks resolved from them bit-equal to the plain versions', every
+    walk, and the greedy scan on the part's greedy section (greedy_pd), then
+    each one's kernel_times; the kernels-line rows "<kernel>@bench_<part>" with
+    that part's own launch counts. Returns (max abs err, the resolved walks)."""
+    import torch
 
-    w = int(pd.start.shape[0])
-    kern, err, res = _scan_equals_plain(f"bench {part}", wide, pd, seed, s, n_anchors)
+    from telomeri_tpu_torch.kernels import greedy_scan, walk_events, walk_scan
+
+    w, h = int(pd.start.shape[0]), wide.shape[1] // 6
+    kern, err, res, res_err = _scan_equals_plain(f"bench {part}", wide, pd, seed, s, n_anchors)
+    row = dict(path=f"bench {part}")
     t = kernel_times(lambda: walk_scan.walk_scan_cuda(wide, pd.start, pd.uid, seed, s),
                      lambda: _plain_scan(wide, pd.start, pd.uid, seed, s),
                      _scan_bound(kern, wide, pd, s), iters)
     results[f"walk_scan@bench_{part}"] = dict(max_abs_err=err, launches=launches["walk_scan"],
-                                              path=f"bench {part}", **t)
-    emit("walk_scan", graph=f"bench_{part}", walks=w, max_steps=s, h=wide.shape[1] // 6,
+                                              **row, **t)
+    emit("walk_scan", graph=f"bench_{part}", walks=w, max_steps=s, h=h,
          nodes=int(wide.shape[0]), walks_checked=w, bitwise_equal_to_plain=True,
          walks_per_s=w / (t["ms"] / 1e3), **t)
+    torch.cuda.empty_cache()
+    t = kernel_times(lambda: walk_events.resolve_events_cuda(
+        pd.start, pd.active, *kern, n_anchors=n_anchors, max_steps=s),
+        lambda: walk_events.resolve_events_torch(pd.start, pd.active, *kern,
+                                                 n_nodes=int(wide.shape[0]),
+                                                 n_anchors=n_anchors, max_steps=s),
+        _resolve_bound(res, pd, s), iters)
+    results[f"resolve_events@bench_{part}"] = dict(
+        max_abs_err=res_err, launches=launches["resolve_events"], **row, **t)
+    emit("resolve_events", graph=f"bench_{part}", walks=w, max_steps=s, walks_checked=w,
+         bitwise_equal_to_plain=True, **t)
+    del kern
+    torch.cuda.empty_cache()
+    if greedy_pd is not None:
+        g_err, g_res = _greedy_equals_plain(f"bench {part}", wide, greedy_pd, seed, s,
+                                            n_anchors, "greedy")
+        t = kernel_times(lambda: greedy_scan.greedy_scan_cuda(wide, greedy_pd, seed, n_anchors,
+                                                              s, "greedy"),
+                         lambda: greedy_scan.greedy_scan_torch(wide, greedy_pd, seed, n_anchors,
+                                                               s, "greedy"),
+                         _greedy_bound(g_res, greedy_pd, h, s), iters)
+        results[f"greedy_scan@bench_{part}"] = dict(
+            max_abs_err=g_err, launches=launches["greedy_scan"], **row, **t)
+        emit("greedy_scan", graph=f"bench_{part}", walks=int(greedy_pd.start.shape[0]),
+             max_steps=s, h=h, walks_checked=int(greedy_pd.start.shape[0]),
+             bitwise_equal_to_plain=True, successful=int(g_res.success.sum()), **t)
     return err, res
 
 
@@ -1139,11 +1363,12 @@ def phase_bench(results: dict) -> None:
     label = bench.device_label(torch.device(DEVICE))
     counts: dict = {}
 
-    def counted(part: str, kernel: str, fn):
+    def counted(part: str, kernels: tuple, fn):
         reset_launch_counts()
         out = fn()
         counts[part] = launch_counts()
-        require(counts[part][kernel] > 0, f"bench {part} never launched {kernel}: {counts[part]}")
+        require(all(counts[part][k] > 0 for k in kernels),
+                f"bench {part} never launched one of {kernels}: {counts[part]}")
         return out
 
     cfg, _, graph, plan = bench.build_problem(BENCH_CELLS[0][1], device_scoring="off",
@@ -1156,18 +1381,22 @@ def phase_bench(results: dict) -> None:
         if cell == "peak":
             cfg, edges, graph, plan = bench.build_problem(mc, device=DEVICE)
         walks_per_s, steps_per_s, split = counted(
-            cell, "walk_scan", lambda: bench.bench_walks(cfg, graph, plan, 5, DEVICE))
+            cell, WALK_KERNELS, lambda: bench.bench_walks(cfg, graph, plan, 5, DEVICE))
+        require(split["greedy_launches"] == 1 and split["resolve_launches"] == 1,
+                f"bench {cell}: the greedy section or the resolution is not one launch: {split}")
         line = bench.emit(walks_per_s, steps_per_s, oracle, plan.n_active, label)
         cells[cell] = line["value"]
         emit("bench", cell=cell, mc_walks_per_end=mc,
              table_mb=engine.device_table_bytes(graph) / 1e6,
              sections=plan.sections, split_ms=split, launches=counts[cell], **line)
-        # the cell's MC section, as bench_walks ran it: every walk against the plain scan
+        # the cell's sections, as bench_walks ran them: every walk against the
+        # plain versions
         gd, pd = _mc_inputs(graph, plan, DEVICE)
         require(cell != "peak" or pd.start.shape[0] > PEAK_ABOVE,
                 f"the peak MC section has {pd.start.shape[0]} walks, no more than {PEAK_ABOVE}")
-        _bench_scan_row(results, cell, counts[cell], gd.wide, pd, cfg.mc_seed, cfg.max_steps,
-                        graph.n_anchors, 5 if cell == "small" else 3)
+        _bench_walk_rows(results, cell, counts[cell], gd.wide, pd, cfg.mc_seed, cfg.max_steps,
+                         graph.n_anchors, 5 if cell == "small" else 3,
+                         greedy_pd=_section(plan, "greedy", DEVICE))
         del gd, pd
         torch.cuda.empty_cache()
     require(cells["peak"] > cells["small"], f"the peak batch is no faster than the small: {cells}")
@@ -1175,7 +1404,7 @@ def phase_bench(results: dict) -> None:
     # the scoring bench on its own tiled geometry, then the kernel there against
     # its plain version
     geom = bench.tiled_geometry(edges, BENCH_SCORING_ROWS, DEVICE)
-    sc = counted("scoring", "score_os_es2", lambda: bench.bench_scoring(edges, 5, DEVICE, geom=geom))
+    sc = counted("scoring", ("score_os_es2",), lambda: bench.bench_scoring(edges, 5, DEVICE, geom=geom))
     require(sc["rows"] == int(geom[0].shape[0]), f"bench_scoring scored {sc['rows']} rows")
     got = scoring.score_overlaps_cuda(*geom, outputs=2)
     plain = scoring.score_overlaps_torch(*geom, outputs=2)
@@ -1203,10 +1432,11 @@ def phase_bench(results: dict) -> None:
     while free is not None and n > 2**16 and free < bench.hg002_host_bytes(n):
         n //= 2
     gd, pd = bench.hg002_problem(DEVICE, n)
-    line = counted("hg002", "walk_scan", lambda: bench.hg002_walks(gd, pd, DEVICE))
+    line = counted("hg002", ("walk_scan", "resolve_events"),
+                   lambda: bench.hg002_walks(gd, pd, DEVICE))
     words = int(gd.wide.shape[0]) * int(gd.wide.shape[1])
-    err, res = _bench_scan_row(results, "hg002", counts["hg002"], gd.wide, pd, 1,
-                               bench.SYNTH_STEPS, bench.SYNTH_ANCHORS, 5)
+    err, res = _bench_walk_rows(results, "hg002", counts["hg002"], gd.wide, pd, 1,
+                                bench.SYNTH_STEPS, bench.SYNTH_ANCHORS, 5)
     emit("bench_hg002", full_size=n == bench.HG002_N, table_words=words,
          offsets_past_int32=words > 2**31, host_memory_available_gib=None if free is None
          else free / 2**30, bitwise_equal_to_plain=True, max_abs_err=err,
@@ -1423,20 +1653,21 @@ def main(argv: list[str]) -> int:
     # each kernel at the scaffold path's (E. coli) shape, from phases 2 and 3,
     # with that run's launch count; then the bench's parts from phase 8, each
     # at its own shape with its own part's count
-    shapes = [(name, f"{name}@ecoli" if name == "walk_scan" else f"{name}@{ECOLI_EDGES}")
+    shapes = [(name, f"{name}@ecoli" if name in WALK_KERNELS else f"{name}@{ECOLI_EDGES}")
               for name in SOURCES]
     shapes += [(key.split("@")[0], key) for key in results if "@bench_" in key]
     for name, key in shapes:
         src, replaces = SOURCES[name]
         t = results[key]
         # ms: device time with the L2 flushed; library_ms: no single PyTorch call
-        # computes either function
+        # computes any of these functions
         kernels.append(dict(name=name, shape=key.split("@")[1], route="cuda", source=src,
                             replaces=replaces, path=t.get("path", "scaffold E. coli"),
                             launches=t.get("launches", counts[name]),
                             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
                             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-                            ms_warm=t["ms_warm"], wrapper_host_us=t["wrapper_host_us"]))
+                            ms_warm=t["ms_warm"], wrapper_host_us=t["wrapper_host_us"],
+                            **{k: t[k] for k in ("chain_ms", "chain_steps") if k in t}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

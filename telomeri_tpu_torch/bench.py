@@ -18,8 +18,10 @@ The default run, in this order:
      about 49.6k walks): table and plan resident on the device, one untimed
      run_walks_prepared, then a burst of max(BENCH_REPEATS, 20) calls timed by
      one pair of CUDA events and one synchronize (the host's clock on the CPU);
-     then, from a second short burst, the greedy section, the walk-scan kernel
-     and resolve_mc_events each on its own (stderr);
+     then, from a second short burst, the walk stage's three parts each on its
+     own: the greedy section, the walk scan and the event resolution (on a
+     card each one kernel), with the device launches of each part and of the
+     whole call counted (stderr);
   3. the peak batch (BENCH_PEAK_MC_WALKS, default 131072: about 1.57M walks;
      0 leaves it out) the same way, and the 2-output scoring kernel on the
      problem's edge geometry tiled to BENCH_SCORING_ROWS rows (default 64M),
@@ -150,11 +152,27 @@ def build_problem(mc_walks_per_end: int, device_scoring: str = "auto", *, device
     return cfg, edges, graph, plan
 
 
+def device_launches(fn) -> int:
+    """Device kernels that one call of fn() launches on the card: the
+    kernel-launch calls (cudaLaunchKernel, cuLaunchKernel and their variants)
+    that torch.profiler records on the host's side; copies and memsets are
+    other calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if "LaunchKernel" in e.name or "LaunchCooperative" in e.name)
+
+
 def walk_sections_split(cfg, gd, sections, *, n_nodes: int, n_anchors: int, device,
                         calls: int = 3) -> dict:
     """The walk stage part by part, each in a burst of its own: the greedy
-    (or mixed) section, the walk-scan kernel, and resolve_mc_events on the
-    kernel's records, with the memory event resolution takes at its peak."""
+    (or mixed) section, the walk scan, and resolve_mc_events on the scan's
+    records, with the memory event resolution takes at its peak and, on a
+    card, the device launches of each part."""
     from telomeri_tpu_torch.kernels.walk_scan import walk_scan
     from telomeri_tpu_torch.walk.engine import resolve_mc_events, run_walks_kind
 
@@ -167,11 +185,15 @@ def walk_sections_split(cfg, gd, sections, *, n_nodes: int, n_anchors: int, devi
             run = lambda: run_walks_kind(gd, pd, seed, n_anchors=n_anchors, max_steps=s, kind=kind)
             run()
             out[f"{kind}_walks"], out[f"{kind}_ms"] = w, timed_ms(run, calls, device)
+            if device.type == "cuda":
+                out[f"{kind}_launches"] = device_launches(run)
             continue
         recs = walk_scan(gd.wide, pd.start, pd.uid, seed, s)
         out["mc_walks"] = w
-        out["scan_ms"] = timed_ms(lambda: walk_scan(gd.wide, pd.start, pd.uid, seed, s),
-                                  calls, device)
+        scan = lambda: walk_scan(gd.wide, pd.start, pd.uid, seed, s)
+        out["scan_ms"] = timed_ms(scan, calls, device)
+        if device.type == "cuda":
+            out["scan_launches"] = device_launches(scan)
         resolve = lambda: resolve_mc_events(pd, *recs, n_nodes=n_nodes, n_anchors=n_anchors,
                                             max_steps=s)
         if device.type == "cuda":
@@ -182,6 +204,7 @@ def walk_sections_split(cfg, gd, sections, *, n_nodes: int, n_anchors: int, devi
             _sync(device)
             out["resolve_peak_mb"] = (torch.cuda.max_memory_allocated(device) - held) / 1e6
             out["records_mb"] = recs.numel() * 4 / 1e6
+            out["resolve_launches"] = device_launches(resolve)
         else:
             resolve()
         out["resolve_ms"] = timed_ms(resolve, calls, device)
@@ -226,6 +249,8 @@ def bench_walks(cfg, graph, plan, repeats: int, device="cuda"):
     split = walk_sections_split(cfg, gd, sections, n_nodes=int(gd.wide.shape[0]),
                                 n_anchors=graph.n_anchors, device=device)
     split["whole_ms"] = dt * 1e3
+    if device.type == "cuda":
+        split["whole_launches"] = device_launches(lambda: run(cfg.mc_seed))
     log("walk stage split, ms per call: " + json.dumps(
         {k: round(v, 4) if isinstance(v, float) else v for k, v in split.items()}))
     return walks_per_s, steps_per_s, split

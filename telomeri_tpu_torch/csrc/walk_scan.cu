@@ -20,8 +20,9 @@
 //   7. cur = nbr[choice] if it is >= 0.
 // A dead row (total <= 0) gives r = 0, every cum entry <= 0, choice = H-1: a pad
 // slot, nxt = -1, and the walk stays put. Events (dead row, revisit, anchor hit)
-// are resolved afterwards from the records, in torch
-// (telomeri_tpu_torch/walk/engine.py::resolve_mc_events).
+// are resolved afterwards from the records (csrc/walk_events.cu on a card,
+// through telomeri_tpu_torch/walk/engine.py::resolve_mc_events). The Threefry
+// arithmetic is csrc/walk_common.cuh's.
 //
 // Bound: bytes, and before that the latency of a chain. Nothing here multiplies
 // matrices, and no tile's address is known before the step that reads it (the
@@ -57,36 +58,12 @@
 // step reads a 256-byte cum block and four 32-byte sectors for the pick), so
 // there L2 traffic, not the latency chain, is what is left.
 
-#include <cuda_runtime.h>
+#include "walk_common.cuh"
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned rotl32(unsigned x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// Threefry-2x32, 20 rounds, as jax.random's threefry_2x32: key (k0, k1),
-// counters (x0, x1) in, two words out (in place).
-__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1, unsigned& x0,
-                                             unsigned& x1) {
-  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (unsigned)(i + 1);
-  }
-}
 
 __device__ __forceinline__ int count_le(const int4& c, int r) {
   return (c.x <= r) + (c.y <= r) + (c.z <= r) + (c.w <= r);

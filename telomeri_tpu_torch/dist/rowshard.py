@@ -16,13 +16,15 @@ records are bit-equal to the replicated run. Every rank runs every section for
 every step, so the collectives stay in lockstep even where a rank's block of a
 section has no active walk.
 
-The walks run through the engine's row-fetch-parameterised scans: _kind_core
-for greedy and mixed sections, and for the MC section the PLAIN scan
-(kernels/walk_scan.py walk_scan_torch) with the collective fetch, then
-resolve_mc_events with the GLOBAL row count. This is the reference's own design
-(it runs _mc_fast_core here, not its Pallas scan): the CUDA walk-scan kernel
-reads rows straight from one device's table, which is what this placement does
-not have, so the row-sharded MC section never launches it.
+The walks run through the engine's row-fetch-parameterised scans, in their
+PLAIN versions with the collective fetch: _kind_core for greedy and mixed
+sections (kernels/greedy_scan.py greedy_scan_torch) and, for the MC section,
+kernels/walk_scan.py walk_scan_torch. This is the reference's own design (it
+runs _mc_fast_core and _kind_core here, not its Pallas scan): the CUDA scan
+kernels read rows straight from one device's table, which is what this
+placement does not have, so the row-sharded scans never launch them. The MC
+records then lie on the rank's device, and resolve_mc_events (with the GLOBAL
+row count) resolves them there: on a card, its kernel.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 Every `csrc/*.cu` source is compiled by nvcc for Hopper (`sm_90a`) into ONE
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes). The library lands in `build/telomeri_tpu_torch/` at the
-repository root, named by a hash of the sources and flags: the first call after
+repository root, named by a hash of the flags and of every `csrc/*.cu` and
+`csrc/*.cuh` file (the headers the sources include): the first call after
 a checkout or an edit builds it, later calls reuse it. Wrappers pass raw device
 pointers (`tensor.data_ptr()`) and PyTorch's current stream; each C function
 returns `cudaGetLastError()` and the wrapper raises when it is not 0.
@@ -45,9 +46,14 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _hashed() -> list[str]:
+    """The files the library is built from: the sources and their headers."""
+    return sorted(_sources() + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -98,6 +104,12 @@ def load() -> ctypes.CDLL:
     lib.telomeri_score_overlaps.restype = i
     lib.telomeri_walk_scan.argtypes = [p, i, p, p, ctypes.c_uint, i, i, p, p]
     lib.telomeri_walk_scan.restype = i
+    lib.telomeri_resolve_events.argtypes = [p] * 7 + [i, i, i] + [p] * 8
+    lib.telomeri_resolve_events.restype = i
+    lib.telomeri_greedy_scan.argtypes = [p, i, ll] + [p] * 5 + [ctypes.c_uint, i, i, i, i] + [p] * 8
+    lib.telomeri_greedy_scan.restype = i
+    lib.telomeri_chase.argtypes = [p, i, i, p, p]
+    lib.telomeri_chase.restype = i
     lib.telomeri_error_string.argtypes = [i]
     lib.telomeri_error_string.restype = ctypes.c_char_p
     _lib = lib

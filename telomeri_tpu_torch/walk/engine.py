@@ -8,19 +8,23 @@ cumsum, and die on a revisit (cycle kill); a walk succeeds on stepping onto
 another anchor node (id < 2 * n_anchors).
 
 Device layout: GraphDev.wide is the reference's packed (N, 6H) int32 table
-[nbr | cum | eid | adv | es_bits | os_bits]. The MC section runs the historyless
-scan (kernels/walk_scan.py: the hand-written CUDA kernel on a card, the plain
-torch scan on CPU tensors), then resolve_mc_events finds each walk's first
-event from the per-step records. Greedy and mixed sections run _kind_core, a
-Python loop over steps in torch.
+[nbr | cum | eid | adv | es_bits | os_bits]. The walk stage on one device is
+one launch per part, as the reference's is one program (_run_walks_multi): the
+MC section runs the historyless scan (kernels/walk_scan.py), then
+resolve_mc_events finds each walk's first event from the per-step records
+(kernels/walk_events.py); greedy and mixed sections run _kind_core, the scan
+with the in-scan visited table (kernels/greedy_scan.py). Each part is a
+hand-written CUDA kernel on CUDA tensors and its plain torch version on CPU
+tensors; the row-sharded placement (dist/rowshard.py) runs the plain scans with
+its collective row fetch on any device.
 
 RNG: step s of walk `uid` draws lane s % 2 of Threefry-2x32 block s // 2 on the
-key fold_in(key(seed), uid), exactly as jax.random does. On a card the MC
-section's kernel computes the draw in registers; stable_bits_table is the same
-stream as a (S, W) table in torch, for CPU tensors, mixed sections, the
-row-sharded scan and the oracle. Its uint32 arithmetic runs on int64 tensors
-masked to 32 bits; torch.Generator is not used, because it does not produce
-this stream.
+key fold_in(key(seed), uid), exactly as jax.random does. On a card the MC and
+mixed sections' kernels compute the draw in registers (csrc/walk_common.cuh);
+stable_bits_table is the same stream as a (S, W) table in torch, for CPU
+tensors, the row-sharded scans and the oracle. Its uint32 arithmetic runs on
+int64 tensors masked to 32 bits; torch.Generator is not used, because it does
+not produce this stream.
 
 Dtypes follow the reference with JAX x64 off: node ids, uids, records and
 sentinels are int32, score_sum is float32. score_sum is summed over steps in
@@ -30,7 +34,8 @@ consensus rule 5 tie-break compares them exactly). That order is XLA's tree
 reduction rewrite with a window of 32: up to 32 steps, one sequential sum from
 0.0; above 32, the steps are padded with zeros to a multiple of 32, pad // 2
 zeros in front and the rest behind, each window of 32 is summed sequentially
-from 0.0, and the window sums are reduced by the same rule (_sum_steps). So
+from 0.0, and the window sums are reduced by the same rule
+(kernels/walk_common.py sum_steps, here _sum_steps; the walk kernels' StepSum). So
 S = 48 sums steps [0, 24) and [24, 48) and adds the two; S = 96 sums three
 windows of 32 left to right.
 """
@@ -44,7 +49,12 @@ import torch
 
 from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.graph.tensorize import GraphTensors
-from telomeri_tpu_torch.walk.plan import MODE_GREEDY_OS, MODE_MC, WalkPlan
+from telomeri_tpu_torch.walk.plan import WalkPlan
+from telomeri_tpu_torch.kernels.greedy_scan import greedy_scan, greedy_scan_torch
+from telomeri_tpu_torch.kernels.walk_common import (  # noqa: F401  (the order above)
+    sum_steps as _sum_steps,
+)
+from telomeri_tpu_torch.kernels.walk_events import resolve_events
 from telomeri_tpu_torch.kernels.walk_scan import walk_scan
 
 _M32 = 0xFFFFFFFF
@@ -198,28 +208,6 @@ def plan_to_device(p: WalkPlan, device) -> PlanDev:
 
 # --- scans ---------------------------------------------------------------------
 
-_SUM_WINDOW = 32   # XLA CPU's tree-reduction window (module docstring)
-
-
-def _sum_steps(x: torch.Tensor) -> torch.Tensor:
-    """(W, S) float32 -> (W,), in XLA CPU's row-reduce order (module docstring):
-    plain float32 adds in a fixed order, the same on every device."""
-    w, s = x.shape
-    if s > _SUM_WINDOW:
-        n_win = -(-s // _SUM_WINDOW)
-        pad = n_win * _SUM_WINDOW - s
-        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-        x = x.reshape(w, n_win, _SUM_WINDOW)
-    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
-    for j in range(x.shape[-1]):
-        acc = acc + x[..., j]
-    return _sum_steps(acc) if acc.dim() == 2 else acc
-
-
-def _first_true(m: torch.Tensor, steps_i: torch.Tensor, big: int) -> torch.Tensor:
-    return torch.where(m, steps_i, big).amin(dim=1)
-
-
 def run_walks_mc(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int,
                  max_steps: int) -> WalkResult:
     """All-MC section (the reference's _run_walks_mc_fast / _mc_fast_core): the
@@ -234,140 +222,28 @@ def resolve_mc_events(p: PlanDev, nxts, totals, eids_new, adv_new, es_bits_new, 
                       n_nodes: int, n_anchors: int, max_steps: int) -> WalkResult:
     """Post-hoc MC event resolution over (W, S) int32 per-step records: the
     first of dead row, revisit (cycle kill) or anchor hit ends the walk; a kill
-    at the same step as an anchor hit wins. Both revisit branches of the
-    reference: the packed sort when n_nodes * mult < 2**31, else pairwise."""
-    w = p.start.shape[0]
-    dev = p.start.device
-    s_max = max_steps
-    es_steps = es_bits_new.contiguous().view(torch.float32)
-    seq = torch.cat([p.start[:, None], nxts], dim=1)                   # (W, S+1)
-    steps_i = torch.arange(s_max, dtype=torch.int32, device=dev)[None, :].expand(w, s_max)
-    big = s_max + 1
-    mult = 64
-    while mult < s_max + 1:
-        mult *= 2
-    if n_nodes * mult < 2**31:
-        iota = torch.arange(s_max + 1, dtype=torch.int32, device=dev)[None, :]
-        packed = torch.sort(seq * mult + iota, dim=1).values
-        adj_eq = (torch.div(packed[:, 1:], mult, rounding_mode="floor")
-                  == torch.div(packed[:, :-1], mult, rounding_mode="floor"))
-        later = torch.remainder(packed[:, 1:], mult)
-        t_rev = torch.where(adj_eq, later, big + 1).amin(dim=1) - 1
-    else:   # node * mult would overflow int32: pairwise revisit test
-        tri = (torch.arange(s_max + 1, device=dev)[None, :]
-               <= torch.arange(s_max, device=dev)[:, None])           # (S, S+1)
-        dup = ((nxts[:, :, None] == seq[:, None, :]) & tri[None]).any(-1)
-        t_rev = _first_true(dup, steps_i, big)
-    t_dead = _first_true(totals <= 0, steps_i, big)
-    t_kill = torch.minimum(torch.where(p.active, big, 0).to(torch.int32),
-                           torch.minimum(t_rev, t_dead))
-    t_anchor = _first_true(nxts < 2 * n_anchors, steps_i, big)
-    success = t_anchor < t_kill
-    n_taken = torch.where(success, t_anchor + 1, torch.clamp_max(t_kill, s_max))
-    at = torch.clamp(t_anchor, 0, s_max - 1).long()[:, None]
-    terminal = torch.where(success, nxts.gather(1, at)[:, 0], -1)
-    took = steps_i < n_taken[:, None]
-    nodes = torch.cat([p.start[:, None], torch.where(took, nxts, -1)], dim=1)
-    return WalkResult(
-        nodes=nodes,
-        eids=torch.where(took, eids_new, -1),
-        steps=n_taken.to(torch.int32),
-        success=success,
-        terminal=terminal.to(torch.int32),
-        path_len=torch.where(took, adv_new, 0).sum(dim=1, dtype=torch.int32),
-        score_sum=_sum_steps(torch.where(took, es_steps, 0.0)),
-    )
-
-
-def _pick(a: torch.Tensor, choice: torch.Tensor) -> torch.Tensor:
-    """a[i, choice[i]], and 0 where choice is out of [0, K) (the reference's
-    one-hot lane reduce)."""
-    k = a.shape[1]
-    inside = (choice >= 0) & (choice < k)
-    v = a.gather(1, torch.clamp(choice, 0, k - 1).long()[:, None])[:, 0]
-    return torch.where(inside, v, torch.zeros_like(v))
+    at the same step as an anchor hit wins (kernels/walk_events.py: the kernel
+    on CUDA tensors, the plain version with both revisit branches of the
+    reference on CPU tensors). n_nodes is the GLOBAL row count, which picks the
+    plain version's revisit branch."""
+    return WalkResult(*resolve_events(p.start, p.active, nxts, totals, eids_new, adv_new,
+                                      es_bits_new, n_nodes=n_nodes, n_anchors=n_anchors,
+                                      max_steps=max_steps))
 
 
 def _kind_core(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int, max_steps: int,
                kind: str, fetch=None) -> WalkResult:
     """Mixed / greedy scan with the in-scan visited table (the reference's
-    _kind_core), as a Python loop over steps. fetch(cur) -> (W, 6H) rows, as in
-    kernels/walk_scan.py walk_scan_torch; the default is the local gather."""
-    if kind not in ("mixed", "greedy"):
-        raise ValueError(f"_kind_core runs mixed or greedy sections, got {kind!r}")
-    wide, k = gd.wide, gd.h
+    _kind_core). With the default local fetch: the kernel on a CUDA table, the
+    plain loop on a CPU one (kernels/greedy_scan.py). fetch(cur) -> (W, 6H)
+    rows is dist/rowshard.py's collective fetch: then the plain loop runs on
+    every device, a collective a step, as the reference's row-sharded mode runs
+    its own scan; that is the one place the plain version runs on a card."""
     if fetch is None:
-        fetch = lambda cur: wide[cur.long()]
-    w = p.start.shape[0]
-    dev = wide.device
-    anchor_lim = 2 * n_anchors
-    use_mc = kind == "mixed"
-    bits = stable_bits_table(seed, p.uid, max_steps) if use_mc else None
-    is_mc = p.mode == MODE_MC
-    is_os = p.mode == MODE_GREEDY_OS
-
-    visited = torch.full((w, max_steps + 1), -1, dtype=torch.int32, device=dev)
-    visited[:, 0] = p.start
-    cur = p.start.clone()
-    done = ~p.active
-    success = torch.zeros(w, dtype=torch.bool, device=dev)
-    terminal = torch.full((w,), -1, dtype=torch.int32, device=dev)
-    nsteps = torch.zeros(w, dtype=torch.int32, device=dev)
-    ramp = -torch.arange(k, dtype=torch.float32, device=dev)[None, :].expand(w, k)
-    took, eid_t, adv_t, es_t = [], [], [], []
-
-    for s in range(max_steps):
-        rows = fetch(cur)                            # (W, 6H) one row fetch
-        nbr_rows = rows[:, :k]
-        # greedy candidates exclude pads and already-visited destinations
-        revisit = (nbr_rows[:, :, None] == visited[:, None, :]).any(-1)
-        valid = (nbr_rows >= 0) & ~revisit
-        osb = rows[:, 5 * k:6 * k].contiguous().view(torch.float32)
-        gkey = torch.where(is_os[:, None], osb, ramp)
-        masked = torch.where(valid, gkey, float("-inf"))
-        choice = torch.argmax(masked, dim=1).to(torch.int32)   # first max slot
-        dead = ~valid.any(dim=1)
-        if use_mc:
-            cum = rows[:, k:2 * k]
-            total = cum[:, -1]
-            r = torch.remainder(bits[s] & 0x7FFFFFFF, torch.clamp_min(total, 1))
-            mc_choice = torch.clamp_max((cum <= r[:, None]).sum(1), k - 1).to(torch.int32)
-            choice = torch.where(is_mc, mc_choice, choice)
-            dead = torch.where(is_mc, total <= 0, dead)
-        # deterministic first-edge enumeration (MC plans always have -1)
-        forced = (p.first_edge >= 0) if s == 0 else torch.zeros_like(dead)
-        choice = torch.where(forced, p.first_edge, choice)
-        nxt = _pick(nbr_rows, choice)
-        chosen_valid = _pick(valid.to(torch.int32), choice) > 0
-        dead = torch.where(forced, ~chosen_valid, dead)
-        if use_mc:   # MC cycle kill: the chosen destination is already on the path
-            dead = dead | ((nxt[:, None] == visited).any(-1) & is_mc)
-
-        stepping = ~done & ~dead
-        hit_anchor = stepping & (nxt < anchor_lim)
-        cur = torch.where(stepping, nxt, cur)
-        done = done | dead | hit_anchor
-        success = success | hit_anchor
-        terminal = torch.where(hit_anchor, nxt, terminal)
-        nsteps = nsteps + stepping.to(torch.int32)
-        visited[:, s + 1] = torch.where(stepping, nxt, -1)
-        took.append(stepping)
-        eid_t.append(_pick(rows[:, 2 * k:3 * k], choice))
-        adv_t.append(_pick(rows[:, 3 * k:4 * k], choice))
-        es_t.append(_pick(rows[:, 4 * k:5 * k], choice))
-
-    took_ws = torch.stack(took, dim=1)
-    es = torch.stack(es_t, dim=1).view(torch.float32)
-    return WalkResult(
-        nodes=visited,
-        eids=torch.where(took_ws, torch.stack(eid_t, dim=1), -1),
-        steps=nsteps,
-        success=success,
-        terminal=terminal,
-        path_len=torch.where(took_ws, torch.stack(adv_t, dim=1), 0).sum(
-            dim=1, dtype=torch.int32),
-        score_sum=_sum_steps(torch.where(took_ws, es, 0.0)),
-    )
+        out = greedy_scan(gd.wide, p, seed, n_anchors, max_steps, kind)
+    else:
+        out = greedy_scan_torch(gd.wide, p, seed, n_anchors, max_steps, kind, fetch=fetch)
+    return WalkResult(*out)
 
 
 def run_walks_kind(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int,

@@ -267,3 +267,64 @@ def test_cuda_kernels_match_plain_versions():
         got = walk_scan.walk_scan_cuda(wide, start, uid, seed, steps)
         torch.cuda.synchronize()
         assert torch.equal(want, got), (seed, steps)
+    # event resolution on the kernel's records, and greedy / mixed sections with
+    # forced first edges (some past the row) and inactive walks, on the same table
+    from telomeri_tpu_torch.kernels import greedy_scan, walk_events
+    from telomeri_tpu_torch.walk.engine import PlanDev
+
+    bits_of = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    on_card = lambda a: torch.from_numpy(a).to(dev)
+    active = on_card(rng.random(5000) < 0.9)
+    first_edge = on_card(np.where(rng.random(5000) < 0.3, rng.integers(0, h + 4, 5000), -1)
+                         .astype(np.int32))
+    pd = PlanDev(start=start, first_edge=first_edge, mode=on_card(rng.integers(0, 3, 5000)
+                                                                   .astype(np.int32)),
+                 uid=uid, active=active)
+    for seed, steps in ((9, 24), (-9, 33), (3, 96)):
+        recs = walk_scan.walk_scan_cuda(wide, start, uid, seed, steps)
+        kw = dict(n_anchors=20, max_steps=steps)
+        pairs = [(walk_events.resolve_events_torch(start, active, *recs, n_nodes=n, **kw),
+                  walk_events.resolve_events_cuda(start, active, *recs, **kw))]
+        for kind in ("greedy", "mixed"):
+            pairs.append((greedy_scan.greedy_scan_torch(wide, pd, seed, 20, steps, kind),
+                          greedy_scan.greedy_scan_cuda(wide, pd, seed, 20, steps, kind)))
+        torch.cuda.synchronize()
+        for i, (want, got) in enumerate(pairs):
+            for f, a, b in zip(("nodes", "eids", "steps", "success", "terminal", "path_len",
+                                "score_sum"), want, got):
+                assert a.dtype == b.dtype and torch.equal(bits_of(a), bits_of(b)), (i, f, steps)
+    # long walks: forward edges only (node u to u+1 .. u+3), anchors at the end
+    # of the line, so walks run thousands of steps. At 512 steps a block of the
+    # event resolution takes fewer than 64 walks; at MAX_STEPS one walk, and
+    # the greedy scan one warp, each past 48 KB of shared memory
+    from telomeri_tpu_torch.kernels.walk_common import MAX_STEPS
+
+    for steps, n, w in ((512, 800, 3000), (MAX_STEPS, 32_000, 40)):
+        nbr = np.minimum(np.arange(n)[:, None] + np.arange(1, 4)[None, :], n - 1)
+        nbr[-1] = [0, 1, -1]   # the last node leads back to two anchors
+        ok = nbr >= 0
+        es = np.where(ok, rng.uniform(0.5, 50, (n, 3)), 0)
+        wide = torch.from_numpy(pack_wide(nbr, np.cumsum(np.ceil(es), axis=1).astype(np.int32),
+                                          np.where(ok, np.arange(3 * n).reshape(n, 3), -1),
+                                          np.where(ok, rng.integers(1, 500, (n, 3)), 0), es,
+                                          np.where(ok, rng.uniform(0.5, 50, (n, 3)), 0),
+                                          h)).to(dev)
+        start = on_card(rng.integers(40, 200, w).astype(np.int32))
+        pd = PlanDev(start=start, first_edge=on_card(np.where(np.arange(w) % 5 == 0, 1, -1)
+                                                     .astype(np.int32)),
+                     mode=on_card((np.arange(w) % 3).astype(np.int32)),
+                     uid=torch.arange(w, dtype=torch.int32, device=dev),
+                     active=on_card(np.arange(w) % 11 != 0))
+        recs = walk_scan.walk_scan_cuda(wide, start, pd.uid, 8, steps)
+        kw = dict(n_anchors=20, max_steps=steps)
+        pairs = [(walk_events.resolve_events_torch(start, pd.active, *recs, n_nodes=n, **kw),
+                  walk_events.resolve_events_cuda(start, pd.active, *recs, **kw))]
+        for kind in ("greedy", "mixed"):
+            pairs.append((greedy_scan.greedy_scan_torch(wide, pd, 8, 20, steps, kind),
+                          greedy_scan.greedy_scan_cuda(wide, pd, 8, 20, steps, kind)))
+        torch.cuda.synchronize()
+        for i, (want, got) in enumerate(pairs):
+            assert int(got[2].max()) > steps // 3, (i, steps)
+            for f, a, b in zip(("nodes", "eids", "steps", "success", "terminal", "path_len",
+                                "score_sum"), want, got):
+                assert a.dtype == b.dtype and torch.equal(bits_of(a), bits_of(b)), (i, f, steps)
