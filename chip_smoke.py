@@ -37,7 +37,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              launches); the three kernels against their plain versions at 48,
              96, 512 (fewer walks a block) and odd step counts on the tandem
              table, with rescue uids and
-             negative seeds, and at H = 128, 256 and 512 on synthetic hub rows
+             negative seeds, and at H = 128, 256, 512 and 1024 on synthetic hub
+             rows; at E. coli one line each for the greedy scan's time a step
+             beside one L2 hit and the resolution's time a walk-step
   4 lambda   run_pipeline on testdata/lambda with device scoring on the card:
              byte-identical to golden_scaffolds.fa, both path kernels launched
   5 ecoli    the CLI `scaffold --device cuda --device-scoring on` on the E. coli
@@ -759,6 +761,17 @@ def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True,
          from_the_plan=hi > lo, successful=int(g_res.success.sum()), **t_greedy)
     if not split:
         return
+    # how far a step of the greedy scan is from one L2 hit, and a walk-step of
+    # the resolution from the byte rate
+    emit("greedy_scan_per_step", graph=name, chain_steps=t_greedy["chain_steps"],
+         ms_per_step=t_greedy["ms"] / t_greedy["chain_steps"],
+         ms_warm_per_step=t_greedy["ms_warm"] / t_greedy["chain_steps"],
+         l2_load_ns=t_greedy["l2_load_ns"], hbm_load_ns=t_greedy["hbm_load_ns"],
+         l2_hits_a_step=t_greedy["ms"] * 1e6 / t_greedy["chain_steps"] / t_greedy["l2_load_ns"])
+    emit("resolve_events_per_walk_step", graph=name, walks=w, max_steps=s,
+         ns_per_walk_step=t_res["ms"] * 1e6 / (w * s),
+         bound_ns_per_walk_step=t_res["bound_ms"] * 1e6 / (w * s),
+         share_of_bound=t_res["share_of_bound"])
     # the section part by part: the draw table in torch, as the section ran it
     # before the draw moved into the kernel
     draw = lambda: engine.stable_bits_table(seed, pd.uid, s)
@@ -797,7 +810,8 @@ def _check_scan_shapes(tandem_dir: str) -> None:
     path's shapes do not reach: 48, 96, 512 and an odd number of steps on the
     tandem table, rescue uids (>= 1 << 30), a negative seed, wider rows (H =
     128, 256 and 512: hub rows, the last through the scan's looped path); the
-    greedy scan on _greedy_plans of each case, greedy and mixed."""
+    greedy scan on _greedy_plans of each case, greedy and mixed (H = 1024: the
+    greedy scan's rows read in pages of 512 slots)."""
     import numpy as np
     import torch
 
@@ -825,7 +839,7 @@ def _check_scan_shapes(tandem_dir: str) -> None:
         check(f"tandem S={s} seed={seed} uid0={int(p.uid[0])}", gd.wide, p, seed, s,
               graph.n_anchors)
     rng = np.random.default_rng(4)
-    for h, k in ((128, 100), (128, 128), (256, 200), (512, 300), (64, 64), (64, 40)):
+    for h, k in ((128, 100), (128, 128), (256, 200), (512, 300), (1024, 600), (64, 64), (64, 40)):
         n, w = 4096, 20_000
         deg = rng.integers(0, k + 1, n)   # rows of 0..k edges, some dead (all-zero weights)
         slot = np.arange(k)[None, :] < deg[:, None]
@@ -839,16 +853,30 @@ def _check_scan_shapes(tandem_dir: str) -> None:
     emit("walk_scan_shapes", ok=True, kernels=list(WALK_KERNELS), bitwise_equal=checked)
 
 
-def phase_walks(ecoli_dir: str, tandem_dir: str, results: dict) -> None:
+def _rescue_cap_plan(graph, plan):
+    """The rescue round's batch cap: MAX_RESCUE_WALKS MC walks from contig ends."""
     import dataclasses
 
+    import numpy as np
+
+    from telomeri_tpu_torch.walk.rescue import MAX_RESCUE_WALKS, RESCUE_UID_BASE
+
+    ends = np.flatnonzero(graph.anchor_mask() & (graph.deg > 0)).astype(np.int32)
+    w = MAX_RESCUE_WALKS
+    return dataclasses.replace(
+        plan, start=np.resize(ends, w), first_edge=np.full(w, -1, np.int32),
+        mode=np.full(w, 2, np.int32),
+        uid=(RESCUE_UID_BASE + np.arange(w)).astype(np.int32),
+        active=np.ones(w, bool), sections={"greedy": (0, 0), "mc": (0, w)})
+
+
+def phase_walks(ecoli_dir: str, tandem_dir: str, results: dict) -> None:
     import numpy as np
     import torch
 
     from telomeri_tpu_torch.cli.main import main as cli
     from telomeri_tpu_torch.kernels import scoring
     from telomeri_tpu_torch.pipeline import ScaffoldConfig
-    from telomeri_tpu_torch.walk.rescue import MAX_RESCUE_WALKS, RESCUE_UID_BASE
 
     with open(os.path.join(LAMBDA, "config.json")) as f:
         lam_cfg = ScaffoldConfig.from_json(f.read())
@@ -870,15 +898,8 @@ def phase_walks(ecoli_dir: str, tandem_dir: str, results: dict) -> None:
          sections=plan.sections)
     _check_walk_scan("ecoli", graph, plan, cfg, results, split=True)
 
-    # the rescue round's batch cap: MAX_RESCUE_WALKS MC walks from contig ends
-    ends = np.flatnonzero(graph.anchor_mask() & (graph.deg > 0)).astype(np.int32)
-    w = MAX_RESCUE_WALKS
-    big = dataclasses.replace(
-        plan, start=np.resize(ends, w), first_edge=np.full(w, -1, np.int32),
-        mode=np.full(w, 2, np.int32),
-        uid=(RESCUE_UID_BASE + np.arange(w)).astype(np.int32),
-        active=np.ones(w, bool), sections={"greedy": (0, 0), "mc": (0, w)})
-    _check_walk_scan("ecoli_rescue_cap", graph, big, cfg, results, cpu_check=False)
+    _check_walk_scan("ecoli_rescue_cap", graph, _rescue_cap_plan(graph, plan), cfg, results,
+                     cpu_check=False)
 
     # the rescore kernel on the E. coli edges (the main path's shape and data)
     require(len(edges) == ECOLI_EDGES, f"E. coli has {len(edges)} edges, phase 2 timed "
@@ -1609,6 +1630,155 @@ def phase_native(ecoli_dir: str) -> None:
          note="python: phase 5's run in this warm process; native: a fresh process")
 
 
+def _host_us(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host time of fn() in microseconds: `calls` calls on the host's clock over
+    the calls, the median of `repeats` loops; the card is synchronised after
+    each loop, outside the time (a launch is timed to its return, not its run)."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    us = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(us)
+
+
+def wrapper_split(kernel: str, wrapper, launch_args: list, tensors: list, check, w: int,
+                  s: int) -> dict:
+    """Where one wrapper call's host time goes, piece by piece (_host_us each):
+    its input checks, the .contiguous() calls, the torch.cuda.device context,
+    seven torch.empty outputs, the current stream, the data_ptr() calls, the
+    ctypes call alone (arguments made beforehand: the launch), and the whole
+    wrapper; beside them what the pieces could be instead (the seven outputs
+    by new_empty, the current device read, the stream of the device asked
+    for)."""
+    import torch
+
+    from telomeri_tpu_torch.kernels import build
+
+    lib = build.load()
+    dev = tensors[0].device
+    fn = getattr(lib, f"telomeri_{kernel}")
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def empties():
+        return (torch.empty((w, s + 1), **i32), torch.empty((w, s), **i32), torch.empty(w, **i32),
+                torch.empty(w, dtype=torch.bool, device=dev), torch.empty(w, **i32),
+                torch.empty(w, **i32), torch.empty(w, dtype=torch.float32, device=dev))
+
+    like = tensors[-2]   # an int32 input on the device (uid, start)
+
+    def new_empties():
+        return (like.new_empty((w, s + 1)), like.new_empty((w, s)), like.new_empty(w),
+                like.new_empty(w, dtype=torch.bool), like.new_empty(w), like.new_empty(w),
+                like.new_empty(w, dtype=torch.float32))
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = {
+        "checks": check,
+        "contiguous": lambda: [t.contiguous() for t in tensors],
+        "device_context": context,
+        "empty_x7": empties,
+        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "data_ptrs": lambda: [t.data_ptr() for t in tensors] + [t.data_ptr() for t in empties()],
+        "launch": lambda: fn(*launch_args),
+        "wrapper": wrapper,
+        "alt_new_empty_x7": new_empties,
+        "alt_current_device": lambda: torch.cuda.current_device() == dev.index,
+        "alt_stream_of_device": lambda: torch.cuda.current_stream(dev).cuda_stream,
+    }
+    out = {k: _host_us(f) for k, f in pieces.items()}
+    out["data_ptrs"] -= out["empty_x7"]   # its outputs' allocation is not the data_ptr calls'
+    return out
+
+
+def walk_kernel_times(data_dir: str) -> dict:
+    """The greedy scan and the event resolution at every shape PERF.md keeps
+    for them, each held bitwise to its plain version there and timed by
+    kernel_times: E. coli (its greedy section and its MC section, simulated
+    into data_dir unless it holds the preset already) and the rescue round's
+    cap on its table, the bench's small and peak cells (greedy section, MC
+    section) and the whole-human-scale table (MC section; the walk scan is
+    timed too, as phases 3 and 8 do); then each wrapper's host time split at
+    E. coli. One JSON line of every reading (`walk_kernels`)."""
+    import torch
+
+    from telomeri_tpu_torch import bench
+    from telomeri_tpu_torch.cli.main import main as cli
+    from telomeri_tpu_torch.kernels import build, greedy_scan, walk_events, walk_scan
+    from telomeri_tpu_torch.pipeline import ScaffoldConfig
+
+    results: dict = {}
+    if not os.path.exists(os.path.join(data_dir, "genome.fa")):
+        require(cli(["simulate", "--preset", "ecoli", "--out", data_dir]) == 0, "simulate failed")
+    cfg = ScaffoldConfig(device_scoring="on")
+    _, graph, plan = _build(data_dir, cfg)
+    _check_walk_scan("ecoli", graph, plan, cfg, results, cpu_check=False, split=True)
+    _check_walk_scan("ecoli_rescue_cap", graph, _rescue_cap_plan(graph, plan), cfg, results,
+                     cpu_check=False)
+    # each wrapper's host time, piece by piece, at E. coli
+    gd, pd = _mc_inputs(graph, plan, DEVICE)
+    pg = _section(plan, "greedy", DEVICE)
+    s, seed, na = cfg.max_steps, cfg.mc_seed, graph.n_anchors
+    recs = walk_scan.walk_scan_cuda(gd.wide, pd.start, pd.uid, seed, s)
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    wg, wm = int(pg.start.shape[0]), int(pd.start.shape[0])
+    g_out = greedy_scan.greedy_scan_cuda(gd.wide, pg, seed, na, s, "greedy")
+    r_out = walk_events.resolve_events_cuda(pd.start, pd.active, *recs, n_anchors=na, max_steps=s)
+    g_in = [gd.wide, *[getattr(pg, f) for f in ("start", "first_edge", "mode", "uid", "active")]]
+    r_in = [*recs, pd.start, pd.active]
+    split = {
+        "greedy_scan": wrapper_split(
+            "greedy_scan", lambda: greedy_scan.greedy_scan_cuda(gd.wide, pg, seed, na, s, "greedy"),
+            [gd.wide.data_ptr(), gd.h, int(gd.wide.shape[0]), *[t.data_ptr() for t in g_in[1:]],
+             seed & 0xFFFFFFFF, 2 * na, 0, wg, s, *[t.data_ptr() for t in g_out], stream],
+            g_in, lambda: greedy_scan._check(gd.wide, pg, "greedy"), wg, s),
+        "resolve_events": wrapper_split(
+            "resolve_events", lambda: walk_events.resolve_events_cuda(
+                pd.start, pd.active, *recs, n_anchors=na, max_steps=s),
+            [*[t.data_ptr() for t in r_in], 2 * na, wm, s, *[t.data_ptr() for t in r_out], stream],
+            r_in, lambda: walk_events._check(pd.start, pd.active, recs, s), wm, s),
+    }
+    emit("wrapper_host_split", walks={"greedy_scan": wg, "resolve_events": wm}, max_steps=s,
+         us=split, timing="host clock, 200 calls a loop, median of 5 loops, the card "
+                          "synchronised between loops")
+    del gd, pd, pg, recs, g_out, r_out
+    torch.cuda.empty_cache()
+
+    zero = {k: 0 for k in ("walk_scan", "greedy_scan", "resolve_events")}
+    for cell, mc in BENCH_CELLS:
+        cfg_b, _, graph_b, plan_b = bench.build_problem(mc, device_scoring="off", device=DEVICE)
+        gd, pd = _mc_inputs(graph_b, plan_b, DEVICE)
+        _bench_walk_rows(results, cell, zero, gd.wide, pd, cfg_b.mc_seed, cfg_b.max_steps,
+                         graph_b.n_anchors, 5 if cell == "small" else 3,
+                         greedy_pd=_section(plan_b, "greedy", DEVICE))
+        del gd, pd
+        torch.cuda.empty_cache()
+    n = bench.HG002_N
+    free = bench.host_memory_available()
+    while free is not None and n > 2**16 and free < bench.hg002_host_bytes(n):
+        n //= 2
+    gd, pd = bench.hg002_problem(DEVICE, n)
+    _bench_walk_rows(results, "hg002", zero, gd.wide, pd, 1, bench.SYNTH_STEPS,
+                     bench.SYNTH_ANCHORS, 5)
+    del gd, pd
+    torch.cuda.empty_cache()
+    keep = ("ms", "ms_warm", "wrapper_host_us", "plain_ms", "bound_ms", "share_of_bound",
+            "all_planes_bound_ms", "chain_ms", "chain_steps", "l2_load_ns", "max_abs_err")
+    return {key: {k: v for k, v in r.items() if k in keep} for key, r in results.items()}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1617,8 +1787,15 @@ def main(argv: list[str]) -> int:
         return 1
     import telomeri_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if argv[:1] == ["walk-kernels"] and len(argv) == 2:
+        # the walk kernels' readings alone (see walk_kernel_times): no contract line
+        phase_device()
+        phase_build()
+        print(json.dumps({"walk_kernels": walk_kernel_times(argv[1])}), flush=True)
+        return 0
     if argv:
-        print(f"chip_smoke: takes no arguments, got {argv}", file=sys.stderr)
+        print(f"chip_smoke: takes no arguments (or `walk-kernels DATA_DIR`), got {argv}",
+              file=sys.stderr)
         return 2
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)

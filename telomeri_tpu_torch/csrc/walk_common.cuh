@@ -61,7 +61,7 @@ __device__ __forceinline__ unsigned draw_bits(unsigned k0, unsigned k1, int s) {
 // A padding zero is never added: +0.0 added to an accumulator that started at
 // +0.0 changes nothing under round-to-nearest (no such sum is ever -0.0), so
 // only where the windows end matters. Every add is __fadd_rn (and the library
-// builds with -fmad=false). Levels: S <= kMaxSteps = 32**kLevels, which the
+// builds with -fmad=false). Three levels: S <= kMaxSteps = 32**3, which the
 // kernels' entry points and kernels/walk_common.py MAX_STEPS hold to.
 constexpr int kMaxSteps = 32 * 32 * 32;
 
@@ -70,52 +70,47 @@ constexpr int kMaxSteps = 32 * 32 * 32;
 // largest block at S = 32) and opt in only where one walk needs more.
 constexpr size_t kDefaultSmem = 48 * 1024;
 
+// Three levels, kept in named scalars (no arrays), so the sum stays in
+// registers: an array of levels indexed in an unrolled loop with an early
+// return was placed on the stack, a local-memory round trip a step.
 struct StepSum {
-  static constexpr int kLevels = 3;
-  float acc[kLevels];
-  int pushed[kLevels];  // values added to level l so far
-  int front[kLevels];   // zeros padded in front of level l's values
-  int count[kLevels];   // values level l receives
-  int top;              // the level summed sequentially to the end
+  float acc0, acc1, acc2;
+  int pushed0, pushed1;  // values added to levels 0 and 1 so far
+  int front0, front1;    // zeros padded in front of their values
+  int count0, count1;    // values they receive
+  int top;               // the level summed sequentially to the end
 
   __device__ __forceinline__ explicit StepSum(int s) {
-    top = 0;
-    int n = s;
-#pragma unroll
-    for (int l = 0; l < kLevels; ++l) {
-      acc[l] = 0.0f;
-      pushed[l] = 0;
-      count[l] = n;
-      const int windows = (n + 31) / 32;
-      front[l] = n > 32 ? (windows * 32 - n) / 2 : 0;
-      if (l == top && n > 32 && l + 1 < kLevels) {
-        top = l + 1;
-        n = windows;
-      }
-    }
+    acc0 = acc1 = acc2 = 0.0f;
+    pushed0 = pushed1 = 0;
+    const int w0 = (s + 31) / 32;    // level 0's windows: level 1's values
+    const int w1 = (w0 + 31) / 32;   // level 1's windows: level 2's values
+    count0 = s;
+    count1 = w0;
+    front0 = s > 32 ? (w0 * 32 - s) / 2 : 0;
+    front1 = w0 > 32 ? (w1 * 32 - w0) / 2 : 0;
+    top = s <= 32 ? 0 : w0 <= 32 ? 1 : 2;
   }
 
   // Adds the next step's value (+0.0 for a step not taken).
   __device__ __forceinline__ void add(float v) {
-#pragma unroll
-    for (int l = 0; l < kLevels; ++l) {
-      acc[l] = __fadd_rn(acc[l], v);
-      if (l == top) return;
-      const int pos = pushed[l] + front[l];  // place in level l's padded row
-      ++pushed[l];
-      if ((pos & 31) != 31 && pushed[l] != count[l]) return;  // the window goes on
-      v = acc[l];  // the window is whole: its sum is the next level's value
-      acc[l] = 0.0f;
-    }
+    acc0 = __fadd_rn(acc0, v);
+    if (top == 0) return;
+    int pos = pushed0 + front0;  // place in level 0's padded row
+    ++pushed0;
+    if ((pos & 31) != 31 && pushed0 != count0) return;  // the window goes on
+    acc1 = __fadd_rn(acc1, acc0);  // the window is whole: its sum goes up a level
+    acc0 = 0.0f;
+    if (top == 1) return;
+    pos = pushed1 + front1;
+    ++pushed1;
+    if ((pos & 31) != 31 && pushed1 != count1) return;
+    acc2 = __fadd_rn(acc2, acc1);
+    acc1 = 0.0f;
   }
 
   __device__ __forceinline__ float result() const {
-    float r = 0.0f;
-#pragma unroll
-    for (int l = 0; l < kLevels; ++l) {
-      if (l == top) r = acc[l];
-    }
-    return r;
+    return top == 0 ? acc0 : top == 1 ? acc1 : acc2;
   }
 };
 

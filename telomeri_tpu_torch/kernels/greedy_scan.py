@@ -35,7 +35,8 @@ from __future__ import annotations
 import torch
 
 from telomeri_tpu_torch.kernels import build
-from telomeri_tpu_torch.kernels.walk_common import check_steps, sum_steps
+from telomeri_tpu_torch.kernels.walk_common import (check_steps, launch_on, sum_steps,
+                                                    walk_outputs)
 
 # launches of the kernel; only greedy_scan_cuda adds to it
 launches = {"greedy_scan": 0}
@@ -61,11 +62,12 @@ def _check(wide: torch.Tensor, pd, kind: str) -> tuple[int, int]:
     w = pd.start.shape[0]
     for name in ("start", "first_edge", "mode", "uid"):
         a = getattr(pd, name)
-        if tuple(a.shape) != (w,) or a.dtype != torch.int32:
+        if a.shape != (w,) or a.dtype != torch.int32:
             raise ValueError(f"{name} must be ({w},) int32, got {tuple(a.shape)} {a.dtype}")
-    if tuple(pd.active.shape) != (w,) or pd.active.dtype != torch.bool:
+    if pd.active.shape != (w,) or pd.active.dtype != torch.bool:
         raise ValueError("active must be (W,) bool")
-    if any(a.device != wide.device for a in pd):
+    dev = wide.device
+    if any(a.device != dev for a in pd):
         raise ValueError("wide and the plan must lie on one device")
     return wide.shape[1] // 6, w
 
@@ -170,21 +172,15 @@ def greedy_scan_cuda(wide: torch.Tensor, pd, seed, n_anchors: int, max_steps: in
         raise ValueError("the kernel reads wide's rows 16 bytes at a time: it must "
                          "start on 16 bytes")
     plan = [getattr(pd, f).contiguous() for f in ("start", "first_edge", "mode", "uid", "active")]
+    out = walk_outputs(plan[0], w, max_steps)
+    if w == 0:
+        return out   # nothing to launch
     lib = build.load()
-    dev = wide.device
-    with torch.cuda.device(dev):
-        i32 = dict(dtype=torch.int32, device=dev)
-        out = (torch.empty((w, max_steps + 1), **i32), torch.empty((w, max_steps), **i32),
-               torch.empty(w, **i32), torch.empty(w, dtype=torch.bool, device=dev),
-               torch.empty(w, **i32), torch.empty(w, **i32),
-               torch.empty(w, dtype=torch.float32, device=dev))
-        if w == 0:
-            return out   # nothing to launch
-        rc = lib.telomeri_greedy_scan(
-            wide.data_ptr(), h, int(wide.shape[0]), *[a.data_ptr() for a in plan],
+    args = (wide.data_ptr(), h, int(wide.shape[0]), *[a.data_ptr() for a in plan],
             int(seed) & 0xFFFFFFFF, 2 * int(n_anchors), KINDS.index(kind), w, max_steps,
-            *[a.data_ptr() for a in out], torch.cuda.current_stream().cuda_stream)
-        build.check(rc, "greedy_scan")
+            *[a.data_ptr() for a in out])
+    build.check(launch_on(wide.device, lambda stream: lib.telomeri_greedy_scan(*args, stream)),
+                "greedy_scan")
     launches["greedy_scan"] += 1
     return out
 

@@ -7,6 +7,9 @@
                 take: StepSum has three levels of 32-wide windows. Each kernel
                 sizes its blocks' shared memory from the step count, so every
                 count up to this one launches
+  - walk_outputs, launch_on  what both kernels' wrappers do around the ctypes
+                call: the seven WalkResult outputs, and the launch with the
+                tensors' device current, on its current stream
 """
 
 from __future__ import annotations
@@ -38,3 +41,22 @@ def check_steps(max_steps: int) -> None:
     """Raise unless a walk kernel takes max_steps."""
     if not 1 <= max_steps <= MAX_STEPS:
         raise ValueError(f"the walk kernels take 1 <= max_steps <= {MAX_STEPS}, got {max_steps}")
+
+
+def walk_outputs(like: torch.Tensor, w: int, s: int) -> tuple:
+    """Uninitialised WalkResult outputs of w walks of s steps on the device of
+    `like` (an int32 tensor), in its order: nodes (W, S+1), eids (W, S), steps,
+    success (bool), terminal, path_len, score_sum (float32)."""
+    return (like.new_empty((w, s + 1)), like.new_empty((w, s)), like.new_empty(w),
+            like.new_empty(w, dtype=torch.bool), like.new_empty(w), like.new_empty(w),
+            like.new_empty(w, dtype=torch.float32))
+
+
+def launch_on(device: torch.device, launch) -> int:
+    """launch(stream) with `device` the current CUDA device (the runtime
+    launches there) and its current stream's handle; the device context is
+    entered only where another device is current. Returns what launch does."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return launch(torch.cuda.current_stream(device).cuda_stream)

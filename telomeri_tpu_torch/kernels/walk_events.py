@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 
 from telomeri_tpu_torch.kernels import build
-from telomeri_tpu_torch.kernels.walk_common import check_steps, sum_steps
+from telomeri_tpu_torch.kernels.walk_common import (check_steps, launch_on, sum_steps,
+                                                    walk_outputs)
 
 # launches of the kernel; only resolve_events_cuda adds to it
 launches = {"resolve_events": 0}
@@ -48,13 +49,14 @@ def _check(start, active, planes, max_steps: int) -> int:
     if start.dim() != 1 or start.dtype != torch.int32:
         raise ValueError("start must be (W,) int32")
     w = start.shape[0]
-    if tuple(active.shape) != (w,) or active.dtype != torch.bool:
+    if active.shape != (w,) or active.dtype != torch.bool:
         raise ValueError("active must be (W,) bool")
     for name, a in zip(("nxts", "totals", "eids", "adv", "es_bits"), planes):
-        if tuple(a.shape) != (w, max_steps) or a.dtype != torch.int32:
+        if a.shape != (w, max_steps) or a.dtype != torch.int32:
             raise ValueError(f"{name} must be ({w}, {max_steps}) int32, got "
                              f"{tuple(a.shape)} {a.dtype}")
-    if any(t.device != start.device for t in (active, *planes)):
+    dev = start.device
+    if any(t.device != dev for t in (active, *planes)):
         raise ValueError("start, active and the records must lie on one device")
     return w
 
@@ -117,20 +119,14 @@ def resolve_events_cuda(start, active, nxts, totals, eids_new, adv_new, es_bits_
         raise ValueError("resolve_events_cuda needs CUDA tensors")
     start, active = start.contiguous(), active.contiguous()
     planes = [a.contiguous() for a in planes]
+    out = walk_outputs(start, w, max_steps)
+    if w == 0:
+        return out   # nothing to launch
     lib = build.load()
-    with torch.cuda.device(start.device):
-        i32 = dict(dtype=torch.int32, device=start.device)
-        out = (torch.empty((w, max_steps + 1), **i32), torch.empty((w, max_steps), **i32),
-               torch.empty(w, **i32), torch.empty(w, dtype=torch.bool, device=start.device),
-               torch.empty(w, **i32), torch.empty(w, **i32),
-               torch.empty(w, dtype=torch.float32, device=start.device))
-        if w == 0:
-            return out   # nothing to launch
-        rc = lib.telomeri_resolve_events(
-            *[a.data_ptr() for a in planes], start.data_ptr(), active.data_ptr(),
-            2 * int(n_anchors), w, max_steps, *[a.data_ptr() for a in out],
-            torch.cuda.current_stream().cuda_stream)
-        build.check(rc, "resolve_events")
+    args = (*[a.data_ptr() for a in planes], start.data_ptr(), active.data_ptr(),
+            2 * int(n_anchors), w, max_steps, *[a.data_ptr() for a in out])
+    build.check(launch_on(start.device, lambda stream: lib.telomeri_resolve_events(*args, stream)),
+                "resolve_events")
     launches["resolve_events"] += 1
     return out
 

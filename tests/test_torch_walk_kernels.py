@@ -3,16 +3,19 @@
 csrc/greedy_scan.cu (the reference's _kind_core: greedy and mixed sections) and
 csrc/walk_events.cu (its _resolve_mc_events: MC event resolution) run only on
 a card. So each is transcribed here, walk by walk and step by step, into numpy
-(float32 and int32 scalars, sums that wrap as in C): the warp's first-maximum
-argmax (each lane's slots in order, then the __shfl_xor_sync butterfly), the
-visited test, the early stop of a finished walk, the one-way revisit test, the
-Threefry draw of a mixed section's MC walks and the streaming float32 step sum
-in XLA's row-reduce order (csrc/walk_common.cuh StepSum). Each transcription is
-held by its bits against the reference on CPU JAX (_run_walks_kind,
-_resolve_mc_events) and against the port's plain torch versions, which the
-kernels are held to on the card (tests/test_torch_pipeline.py, gpu marker, and
-chip_smoke.py). The dispatchers run the plain versions on CPU tensors and
-reject what the kernels do not take."""
+(float32 and int32 scalars, sums that wrap as in C): the greedy scan's slots
+strided over the lanes, its one valid bit a slot from the broadcast visited
+test, the first maximum as an order-preserving uint32 key map, a warp max and
+a warp min over the lanes that hold it, the pick from the owner lane (or a
+second load for rows read in pages), the Threefry draw of a mixed section's MC
+walks counted by ballots; the resolution's warp search in 32-step chunks
+(ballots of dead rows and anchors, a lower lane's match, the earlier chunks'
+path); and the streaming float32 step sum in XLA's row-reduce order
+(csrc/walk_common.cuh StepSum). Each transcription is held by its bits against
+the reference on CPU JAX (_run_walks_kind, _resolve_mc_events) and against the
+port's plain torch versions, which the kernels are held to on the card
+(tests/test_torch_pipeline.py, gpu marker, and chip_smoke.py). The dispatchers
+run the plain versions on CPU tensors and reject what the kernels do not take."""
 
 import dataclasses
 import json
@@ -79,32 +82,45 @@ class StepSum:
         return self.acc[self.top]
 
 
-def _take_max(k, j, key, slot):
-    """csrc/greedy_scan.cu take_max over the 32 lanes at once: NaN above every
-    number, then the value, then the lower slot."""
-    k_nan, key_nan = np.isnan(k), np.isnan(key)
-    better = np.where(key_nan, k_nan & (j < slot),
-                      k_nan | (k > key) | ((k == key) & (j < slot)))
-    return np.where(better, k, key), np.where(better, j, slot)
+KEY_NEG_INF = np.uint32(0x007FFFFF)   # csrc/greedy_scan.cu kKeyNegInf: key_order(-inf)
 
 
-def _warp_first_max(masked: np.ndarray) -> int:
-    """The kernel's argmax of one step: lane l takes the 16-byte pieces c = l,
-    l + 32, ... of the row (slots 4c .. 4c+3, in order), then five rounds of
-    __shfl_xor_sync; every lane ends with the same slot."""
-    h = len(masked)
+def _key_order(k) -> np.ndarray:
+    """csrc/greedy_scan.cu key_order: float32 keys to uint32 in torch.argmax
+    order (every NaN 0xFFFFFFFF, -0.0 as +0.0, then the sign-flip map)."""
+    k = np.asarray(k, F32)
+    b = np.where(k == 0, F32(0), k).view(np.uint32)
+    u = np.where(b & np.uint32(0x80000000), ~b, b | np.uint32(0x80000000)).astype(np.uint32)
+    return np.where(np.isnan(k), np.uint32(0xFFFFFFFF), u)
+
+
+def _slots_a_lane(h: int) -> int:
+    """Groups of 32 slots a lane holds in registers (kG): a page of 32 * kG
+    slots; rows wider than 512 slots are read in pages."""
+    return 2 if h <= 64 else 4 if h <= 128 else 8 if h <= 256 else 16
+
+
+def _warp_first_max(keys: np.ndarray) -> int:
+    """The kernel's first maximum of one step over uint32 keys: lane l holds
+    slots l, l + 32, ... (groups, and pages, in order) and keeps its own first
+    maximum (strictly greater replaces, from 0, below every key); then
+    __reduce_max_sync over the lanes and __reduce_min_sync over the slots of
+    the lanes that hold it."""
+    h = len(keys)
     lane = np.arange(32)
-    key, slot = np.full(32, -np.inf, F32), np.full(32, h)
-    for m in range(-(-h // 128)):
-        for i in range(4):
-            j = 4 * (32 * m + lane) + i
-            has = j < h
-            k, s = _take_max(masked[np.minimum(j, h - 1)], j, key, slot)
-            key, slot = np.where(has, k, key), np.where(has, s, slot)
-    for d in (16, 8, 4, 2, 1):
-        key, slot = _take_max(key[lane ^ d], slot[lane ^ d], key, slot)
-    assert (slot == slot[0]).all()
-    return int(slot[0])
+    best_key, best_slot = np.zeros(32, np.uint32), np.zeros(32, np.int64)
+    for j0 in range(0, h, 32):
+        j = j0 + lane
+        k = keys[np.minimum(j, h - 1)]
+        take = (j < h) & (k > best_key)
+        best_key, best_slot = np.where(take, k, best_key), np.where(take, j, best_slot)
+    top = best_key.max()
+    return int(np.where(best_key == top, best_slot, 0xFFFFFFFF).min())
+
+
+def _path_words(s_max: int) -> int:
+    """int32 words of one warp's path in shared memory: S + 1, rounded up to 16 bytes."""
+    return (s_max + 1 + 3) & ~3
 
 
 def _u32(v) -> np.uint32:
@@ -118,8 +134,14 @@ def _draw(key: tuple, s: int) -> int:
 
 
 def greedy_kernel_np(wide, start, first_edge, mode, uid, active, seed, n_anchors, s_max, kind):
-    """csrc/greedy_scan.cu, one walk (warp) at a time: the seven outputs."""
+    """csrc/greedy_scan.cu, one walk (warp) at a time: the seven outputs. Each
+    step reads the whole row once (slots strided over the lanes), tests every
+    slot against the path by 16-byte broadcast reads (the entries past s are
+    -1), keeps one valid bit a slot, and picks at the chosen slot: from the
+    owner lane's registers, or (rows read in pages) by a second load with the
+    path tested again."""
     n, h = wide.shape[0], wide.shape[1] // 6
+    paged = h > 32 * _slots_a_lane(h)
     w = len(start)
     nodes = np.full((w, s_max + 1), -1, np.int32)
     eids = np.full((w, s_max), -1, np.int32)
@@ -127,7 +149,7 @@ def greedy_kernel_np(wide, start, first_edge, mode, uid, active, seed, n_anchors
     success, score_sum = np.zeros(w, bool), np.zeros(w, F32)
     ramp = -np.arange(h, dtype=F32)
     for i in range(w):
-        visited, walk_eids = nodes[i], eids[i]
+        visited, walk_eids = np.full(_path_words(s_max), -1, np.int32), eids[i]
         visited[0] = start[i]
         by_os, mc = mode[i] == MODE_GREEDY_OS, kind == "mixed" and mode[i] == MODE_MC
         key = _kernel_threefry2x32(np.uint32(0), _u32(seed), np.uint32(0), _u32(uid[i])) \
@@ -138,14 +160,16 @@ def greedy_kernel_np(wide, start, first_edge, mode, uid, active, seed, n_anchors
         while s < s_max and not done:
             row = wide[cur + n if cur < 0 else cur]
             nbr = row[:h]
+            valid = (nbr >= 0) & ~np.isin(nbr, visited[:4 * (s // 4) + 4])
             if mc:
                 total = int(row[2 * h - 1])
                 r = (_draw(key, s) & 0x7FFFFFFF) % max(total, 1)
-                choice, dead = min(int((row[h:2 * h] <= r).sum()), h - 1), total <= 0
+                cum = row[h:2 * h]   # __popc of one ballot a group of 32 slots
+                count = sum(int((cum[j0:j0 + 32] <= r).sum()) for j0 in range(0, h, 32))
+                choice, dead = min(count, h - 1), total <= 0
             else:
-                valid = (nbr >= 0) & ~np.isin(nbr, visited[:s + 1])
                 keys = row[5 * h:].view(F32) if by_os else ramp
-                choice = _warp_first_max(np.where(valid, keys, F32(-np.inf)))
+                choice = _warp_first_max(np.where(valid, _key_order(keys), KEY_NEG_INF))
                 dead = not valid.any()
             forced = s == 0 and first_edge[i] >= 0
             if forced:
@@ -153,10 +177,14 @@ def greedy_kernel_np(wide, start, first_edge, mode, uid, active, seed, n_anchors
             inside = 0 <= choice < h
             nxt, e_id, e_adv, e_es = ((int(row[b * h + choice]) for b in (0, 2, 3, 4))
                                       if inside else (0, 0, 0, 0))
+            if paged:
+                ok = inside and nxt >= 0 and nxt not in visited[:s + 1]
+            else:
+                ok = inside and bool(valid[choice])
             if forced:
-                dead = not (inside and nxt >= 0) or nxt in visited
+                dead = not ok
             if mc:
-                dead = dead or nxt in visited
+                dead = dead or not ok
             if not dead:
                 hit, cur, n_taken = nxt < 2 * n_anchors, nxt, n_taken + 1
                 plen = (plen + e_adv) & 0xFFFFFFFF
@@ -168,51 +196,70 @@ def greedy_kernel_np(wide, start, first_edge, mode, uid, active, seed, n_anchors
             s += 1
         for _ in range(s, s_max):
             total_sum.add(0)
+        nodes[i] = visited[:s_max + 1]
         steps[i], success[i], terminal[i] = n_taken, hit, term
         path_len[i], score_sum[i] = np.uint32(plen).view(np.int32), total_sum.result()
     return nodes, eids, steps, success, terminal, path_len, score_sum
 
 
+def _lower_lane_match(v: np.ndarray) -> np.ndarray:
+    """__match_any_sync(v) & lanemask_lt: a lower lane holds the same value."""
+    return np.array([(v[:lane] == v[lane]).any() for lane in range(len(v))])
+
+
 def resolve_kernel_np(start, active, nxt, total, eid, adv, es_bits, n_anchors, s_max):
-    """csrc/walk_events.cu, one walk (thread) at a time: the seven outputs.
-    The kernel's copies of the block's spans through shared memory move the
-    same values; its path_len is an int32 sum, whose order changes nothing."""
+    """csrc/walk_events.cu, one walk (warp) at a time: the seven outputs. The
+    search goes in 32-step chunks (lane = step) up to the chunk of the event:
+    kill = dead row, or a revisit of start (at S > 32, of the path kept in
+    shared memory: start and the earlier chunks' nodes) or of a lower lane's
+    node; anchor = nxt < 2 * n_anchors; the event is the lowest of either, a
+    kill winning its step. Then the taken lanes' eid / adv / es, path_len by a
+    warp sum (int32, wrapping), and score_sum: at S <= 32 a sequential sum of
+    the taken steps (in the kernel lane k of a tile sums walk k's row), above
+    it StepSum over every step."""
     w = len(start)
     nodes = np.full((w, s_max + 1), -1, np.int32)
     eids = np.full((w, s_max), -1, np.int32)
     steps, terminal, path_len = (np.zeros(w, np.int32) for _ in range(3))
     success, score_sum = np.zeros(w, bool), np.zeros(w, F32)
     es = es_bits.view(F32)
+    lane = np.arange(32)
     for i in range(w):
-        n_taken, hit = 0, False
-        if active[i]:
-            n_taken, seen = s_max, []
-            for t in range(s_max):
-                v = int(nxt[i, t])
-                kill = total[i, t] <= 0 or v == start[i]
-                for j in range(t):
-                    if kill:
-                        break
-                    kill = seen[j] == v
-                if kill:
-                    n_taken = t
-                    break
-                if v < 2 * n_anchors:
-                    n_taken, hit = t + 1, True
-                    break
-                seen.append(v)
+        path = np.full(_path_words(s_max), -1, np.int32)   # the long kernel's shared path
+        path[0] = start[i]
+        n_taken, hit, term = s_max if active[i] else 0, False, -1
+        c0 = 0
+        while c0 < n_taken:   # the short kernel runs its one chunk for every walk
+            t = c0 + lane
+            inn = t < s_max
+            v = np.where(inn, nxt[i, np.minimum(t, s_max - 1)], -1)
+            tot = np.where(inn, total[i, np.minimum(t, s_max - 1)], 1)
+            rev = (v == start[i]) if s_max <= 32 else np.isin(v, path[:c0 + 1])
+            kills = ((tot <= 0) | rev | _lower_lane_match(v)) & inn
+            events = kills | ((v < 2 * n_anchors) & inn)
+            path[c0 + 1:c0 + 1 + int(inn.sum())] = v[inn]
+            if events.any():
+                t_ev = int(np.argmax(events))
+                hit = not kills[t_ev]
+                n_taken = c0 + t_ev + 1 if hit else c0 + t_ev
+                term = int(v[t_ev]) if hit else -1
+            c0 += 32
+        took = np.arange(s_max) < n_taken
         nodes[i, 0] = start[i]
-        plen, total_sum = 0, StepSum(s_max)
-        for t in range(s_max):
-            if t < n_taken:
-                nodes[i, t + 1], eids[i, t] = nxt[i, t], eid[i, t]
-                plen = (plen + int(adv[i, t])) & 0xFFFFFFFF
-                total_sum.add(es[i, t])
-            else:
-                total_sum.add(0)
-        steps[i], success[i] = n_taken, hit
-        terminal[i] = nxt[i, n_taken - 1] if hit else -1
-        path_len[i], score_sum[i] = np.uint32(plen).view(np.int32), total_sum.result()
+        nodes[i, 1:] = np.where(took, nxt[i], -1)
+        eids[i] = np.where(took, eid[i], -1)
+        plen = int(np.where(took, adv[i], 0).astype(np.int64).sum()) & 0xFFFFFFFF
+        if s_max <= 32:
+            acc = F32(0)
+            for t in range(n_taken):
+                acc = F32(acc + es[i, t])
+        else:
+            acc_sum = StepSum(s_max)
+            for t in range(s_max):
+                acc_sum.add(es[i, t] if t < n_taken else 0)
+            acc = acc_sum.result()
+        steps[i], success[i], terminal[i] = n_taken, hit, term
+        path_len[i], score_sum[i] = np.uint32(plen).view(np.int32), acc
     return nodes, eids, steps, success, terminal, path_len, score_sum
 
 
@@ -348,6 +395,80 @@ def test_greedy_kernel_at_every_shape(rng, s_max, k):
     _check_greedy(g, plan, -7 if s_max % 2 else -2**31, s_max, "mixed")
 
 
+def _argmax_rows(rng, h: int) -> list:
+    """(name, keys, valid) rows for the first maximum: NaN of both signs, -0.0
+    against +0.0, +-inf, ties, all-invalid rows, valid slots keyed -inf."""
+    nan_neg = np.array([0xFFC00000], np.uint32).view(F32)[0]
+    base = rng.standard_normal(h).astype(F32)
+    rows = []
+    for name in ("plain", "nan", "neg_nan", "two_nans", "zeros", "neg_zero_first", "pos_inf",
+                 "neg_inf_valid", "ties", "all_invalid", "all_neg_inf", "last_slot"):
+        k, valid = base.copy(), rng.random(h) < 0.7
+        if name == "nan":
+            k[rng.integers(0, h)] = np.nan
+        elif name == "neg_nan":
+            k[rng.integers(0, h)] = nan_neg
+        elif name == "two_nans":
+            k[[h // 3, h - 5]] = [nan_neg, np.nan]
+            valid[[h // 3, h - 5]] = True
+        elif name == "zeros":
+            k[:] = 0.0
+            k[::3] = -0.0
+        elif name == "neg_zero_first":
+            k[:] = -1.0
+            k[[7, 40]] = [-0.0, 0.0]
+            valid[[7, 40]] = True
+        elif name == "pos_inf":
+            k[[h - 1, 33]] = np.inf
+        elif name == "neg_inf_valid":
+            k[:] = -np.inf
+            valid[:5] = [False, False, True, False, True]
+        elif name == "ties":
+            k = rng.integers(0, 3, h).astype(F32)
+        elif name == "all_invalid":
+            valid[:] = False
+        elif name == "all_neg_inf":
+            k[:], valid[:] = -np.inf, True
+        elif name == "last_slot":
+            k[:] = -2.0
+            k[h - 1], valid[h - 1] = 5.0, True
+        rows.append((name, k, valid))
+    return rows
+
+
+@pytest.mark.parametrize("h", [64, 128, 256, 512, 1024])
+def test_first_maximum_matches_torch_argmax(rng, h):
+    """The greedy scan's key map and warp first maximum against torch.argmax of
+    the reference's masked keys (-inf where not valid), and the key map against
+    float order (NaN above +inf, -0.0 equal to +0.0)."""
+    for name, k, valid in _argmax_rows(rng, h):
+        masked = np.where(valid, k, F32(-np.inf)).astype(F32)
+        want = int(torch.argmax(torch.from_numpy(masked)))
+        got = _warp_first_max(np.where(valid, _key_order(k), KEY_NEG_INF))
+        assert got == want, (h, name)
+        assert _warp_first_max(_key_order(masked)) == want, (h, name)
+        ramp = np.where(valid, _key_order(-np.arange(h, dtype=F32)), KEY_NEG_INF)
+        assert _warp_first_max(ramp) == (int(np.argmax(valid)) if valid.any() else 0), (h, name)
+    x = np.array([-np.inf, -3.5, -0.0, 0.0, 1e-45, 2.0, np.inf, np.nan], F32)
+    u = _key_order(x)
+    assert (np.diff(u[[0, 1, 2, 4, 5, 6, 7]].astype(np.int64)) > 0).all()
+    assert u[2] == u[3] and u[7] == _key_order(np.array([0xFFC00001], np.uint32).view(F32))[0]
+    assert u[0] == KEY_NEG_INF
+
+
+def test_greedy_kernel_on_rows_read_in_pages(rng):
+    """H = 1024: rows wider than 512 slots, read in two pages, the pick a second
+    load with the path tested again; greedy and mixed sections."""
+    g = random_graph(rng, n_seqs=600, k=600)
+    assert engine.lane_width(g.nbr.shape[1]) == 1024
+    plan = plan_walks(g, ScaffoldConfig(mc_walks_per_end=1, max_steps=12))
+    (lo, hi), (mc_lo, mc_hi) = plan.sections["greedy"], plan.sections["mc"]
+    greedy = np.arange(lo, hi)[::max(1, (hi - lo) // 16)]
+    _check_greedy(g, _rows(plan, greedy), 5, 12, "greedy")
+    mixed = np.concatenate([greedy, np.arange(mc_lo, mc_hi)[::max(1, (mc_hi - mc_lo) // 16)]])
+    _check_greedy(g, _rows(plan, mixed), -9, 12, "mixed")
+
+
 def _edge_case_table():
     """A hand table of 12 nodes, 2 anchors (nodes 0-3), K = 5 (H = 64). Rows are
     sorted by ES, so slot j is the j-th entry below by ES. Node 1 has an edge
@@ -452,6 +573,46 @@ def test_resolve_kernel_on_planted_events(rng, s_max, n_nodes):
     start, active, recs = _planted_records(rng, 210, s_max, 8, n_nodes)
     got = _check_resolve(start, active, recs, (n_nodes,), 8, s_max)
     assert got[3].any() and (got[2] < s_max).any()
+
+
+@pytest.mark.parametrize("s_max", [33, 64, 96])
+def test_resolve_kernel_revisits_across_a_chunk_boundary(rng, s_max):
+    """Events past the first 32-step chunk, each walk with none before it: a
+    step onto the start, onto a node of the first chunk, onto a lower lane of
+    its own chunk (or the chunk before's last node), onto a node of the chunk
+    before its own (revisits found through the earlier chunks' path), and
+    anchor hits."""
+    w, n_anchors = 120, 8
+    lo = 2 * n_anchors
+    start = (lo + np.arange(w)).astype(np.int32)
+    nxts = np.empty((w, s_max), np.int32)
+    for i in range(w):   # distinct nodes a row, none of them the start
+        nxts[i] = rng.choice(np.arange(lo + w, lo + w + 10 * s_max), s_max, replace=False)
+    totals = np.ones((w, s_max), np.int32)
+    at = 32 + rng.integers(0, s_max - 32, w)   # the event's step, past the first chunk
+    for i in range(w):
+        t = at[i]
+        kind = i % 5
+        if kind == 0:
+            nxts[i, t] = start[i]
+        elif kind == 1:
+            nxts[i, t] = nxts[i, rng.integers(0, 32)]
+        elif kind == 2:   # a lower lane of its own chunk, or the chunk before's last
+            nxts[i, t] = nxts[i, t - 1 - rng.integers(0, t % 32 + 1)]
+        elif kind == 3:   # a node of the chunk before its own
+            nxts[i, t] = nxts[i, rng.integers(32 * (t // 32) - 32, 32 * (t // 32))]
+        else:
+            nxts[i, t] = rng.integers(0, lo)
+    eids = rng.integers(-1, 1000, (w, s_max)).astype(np.int32)
+    adv = rng.integers(0, 2**30, (w, s_max)).astype(np.int32)
+    es = (rng.standard_normal((w, s_max)) * 10).astype(F32)
+    active = np.ones(w, bool)
+    recs = [nxts, totals, eids, adv, es.view(np.int32)]
+    got = _check_resolve(start, active, recs, (50_000, 40_000_000), n_anchors, s_max)
+    steps, success = got[2], got[3]
+    kill = np.arange(w) % 5 != 4
+    assert (steps[kill] == at[kill]).all() and not success[kill].any()
+    assert (steps[~kill] == at[~kill] + 1).all() and success[~kill].all()
 
 
 def test_resolve_kernel_on_lambda_and_the_ecoli_model(lambda_problem, ecoli_problem):
