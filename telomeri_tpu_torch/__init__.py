@@ -24,7 +24,8 @@ public names, so that a reader finds the counterpart:
   kernels/            hand-written CUDA kernels (csrc/*.cu) and their plain
                       torch versions
   utils/              logging, shapes, stats, align, validate, watchdog, and
-                      profiling.py (--trace: torch.profiler around the walk stage)
+                      profiling.py (--trace: torch.profiler around the whole
+                      run; the program's named spans and counters)
   pipeline.py         build_graph + run_pipeline
   cli/main.py         `telomeri-tpu-torch scaffold ... --device cuda [--mesh N]`
   interop.py          carry the reference's tables and dataclasses across

@@ -105,7 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "here unless a launcher (torchrun) already did "
                         "(0 = single device)")
     s.add_argument("--trace", metavar="DIR",
-                   help="write a torch.profiler trace of the walk stage to DIR")
+                   help="write a torch.profiler trace of the whole run to DIR")
     s.add_argument("--agp", metavar="FILE",
                    help="also write scaffold composition as AGP v2.1")
     _add_config_flags(s)

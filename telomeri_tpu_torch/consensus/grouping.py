@@ -23,6 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from telomeri_tpu_torch.utils.profiling import count_copy, span
+
 _I32MAX = 2**31 - 1
 _I32MIN = -(2**31)
 _M32 = 0xFFFFFFFF
@@ -95,11 +97,12 @@ def path_signature(nodes: torch.Tensor, steps: torch.Tensor,
 def summarize(res, uid: torch.Tensor, virtual_base: int | None = None) -> WalkSummary:
     """WalkResult -> WalkSummary (start is nodes[:, 0]); pass virtual_base to
     compute the path signatures that support="read_diverse" needs."""
-    sig = (None if virtual_base is None
-           else path_signature(res.nodes, res.steps, int(virtual_base)))
-    return WalkSummary(start=res.nodes[:, 0], terminal=res.terminal,
-                       success=res.success, path_len=res.path_len,
-                       score_sum=res.score_sum, uid=uid.to(res.nodes.device), sig=sig)
+    with span("consensus.summarize", W=res.nodes.shape[0]):
+        sig = (None if virtual_base is None
+               else path_signature(res.nodes, res.steps, int(virtual_base)))
+        return WalkSummary(start=res.nodes[:, 0], terminal=res.terminal,
+                           success=res.success, path_len=res.path_len,
+                           score_sum=res.score_sum, uid=uid.to(res.nodes.device), sig=sig)
 
 
 def _lexsort_rows(keys_minor_to_major) -> torch.Tensor:
@@ -235,7 +238,9 @@ def summarize_in_chunks(res, uid: torch.Tensor, virtual_base: int | None, chunk:
     summary is per walk, so the result equals summarize over all records."""
     parts = []
     for lo in range(0, int(uid.shape[0]), chunk):
-        rows = type(res)(*[torch.as_tensor(a[lo:lo + chunk]).to(device) for a in res])
+        with span("consensus.upload", chunk=len(parts), W=min(chunk, int(uid.shape[0]) - lo)):
+            rows = type(res)(*[torch.as_tensor(a[lo:lo + chunk]).to(device) for a in res])
+        count_copy(rows, "cpu", device)
         parts.append(summarize(rows, uid[lo:lo + chunk], virtual_base=virtual_base))
     return WalkSummary(*[None if cols[0] is None else torch.cat(cols) for cols in zip(*parts)])
 
@@ -243,9 +248,12 @@ def summarize_in_chunks(res, uid: torch.Tensor, virtual_base: int | None, chunk:
 def summary_consensus(summary: WalkSummary, cfg, support: str) -> ConsensusResult:
     """group_and_select over a whole plan's summary under cfg's (a
     ScaffoldConfig) grouping rules with the given support; host numpy."""
-    return group_and_select(
-        summary, group_window=cfg.group_window, min_support=cfg.min_group_support,
-        grouping=cfg.grouping, support=support).to_numpy()
+    with span("consensus.select", W=summary.start.shape[0]):
+        out = group_and_select(
+            summary, group_window=cfg.group_window, min_support=cfg.min_group_support,
+            grouping=cfg.grouping, support=support).to_numpy()
+    count_copy([a for a in out if a is not None], summary.start.device, "cpu")
+    return out
 
 
 def walk_consensus(res, uid: torch.Tensor, cfg, *, virtual_base: int | None,
@@ -336,15 +344,16 @@ def consensus_oracle(
 
 def compress(c: ConsensusResult) -> list[dict]:
     """Host-side: valid rows of a ConsensusResult as a sorted list of bridge dicts."""
-    if isinstance(c.valid, torch.Tensor):
-        c = c.to_numpy()
-    rows = []
-    for i in np.flatnonzero(c.valid):
-        row = dict(pair=(int(c.pair_a[i]), int(c.pair_b[i])),
-                   count=int(c.count[i]), bucket=int(c.bucket[i]),
-                   rep_uid=int(c.rep_uid[i]), rep_score=float(c.rep_score[i]))
-        if c.distinct is not None:
-            row["distinct"] = int(c.distinct[i])
-        rows.append(row)
-    rows.sort(key=lambda r: r["pair"])
-    return rows
+    with span("consensus.compress"):
+        if isinstance(c.valid, torch.Tensor):
+            c = c.to_numpy()
+        rows = []
+        for i in np.flatnonzero(c.valid):
+            row = dict(pair=(int(c.pair_a[i]), int(c.pair_b[i])),
+                       count=int(c.count[i]), bucket=int(c.bucket[i]),
+                       rep_uid=int(c.rep_uid[i]), rep_score=float(c.rep_score[i]))
+            if c.distinct is not None:
+                row["distinct"] = int(c.distinct[i])
+            rows.append(row)
+        rows.sort(key=lambda r: r["pair"])
+        return rows

@@ -40,6 +40,7 @@ from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.graph.tensorize import GraphTensors
 from telomeri_tpu_torch.walk.plan import WalkPlan
 from telomeri_tpu_torch.consensus.grouping import ConsensusResult, WalkSummary, walk_consensus
+from telomeri_tpu_torch.utils.profiling import span
 from telomeri_tpu_torch.walk.engine import (
     GraphDev,
     WalkResult,
@@ -168,8 +169,9 @@ def shard_plan(plan: WalkPlan, mesh: WalkMesh) -> tuple[WalkPlan, np.ndarray]:
 
 
 def _all_gather(x: torch.Tensor, mesh: WalkMesh) -> list[torch.Tensor]:
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    with span("mesh.gather", rows=x.shape[0], ranks=mesh.size):
+        parts = [torch.empty_like(x) for _ in range(mesh.size)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
     return parts
 
 

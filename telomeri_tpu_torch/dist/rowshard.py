@@ -43,12 +43,14 @@ from telomeri_tpu_torch.walk.engine import (
     _cum_arrays,
     _empty_result,
     _kind_core,
+    count_dispatch,
     lane_width,
     pack_wide,
     prepare_plan_sections,
     resolve_mc_events,
     stable_bits_table,
 )
+from telomeri_tpu_torch.utils.profiling import span
 
 
 def shard_graph_rows(g: GraphTensors, mesh: WalkMesh) -> GraphDev:
@@ -99,15 +101,19 @@ def run_walks_rowsharded(g: GraphTensors, plan: WalkPlan, seed, *, max_steps: in
     local, rows = shard_plan(plan, mesh)
     fetch = _collective_fetch(shard.wide, mesh)
     parts = []
-    for kind, pd in prepare_plan_sections(local, mesh.device):
-        if kind == "mc":
-            bits = stable_bits_table(seed, pd.uid, max_steps)
-            recs = walk_scan_torch(shard.wide, pd.start, bits, max_steps, fetch=fetch)
-            parts.append(resolve_mc_events(pd, *recs, n_nodes=n_nodes,
-                                           n_anchors=g.n_anchors, max_steps=max_steps))
-        else:
-            parts.append(_kind_core(shard, pd, seed, n_anchors=g.n_anchors,
-                                    max_steps=max_steps, kind=kind, fetch=fetch))
+    sections = prepare_plan_sections(local, mesh.device)
+    d, w = count_dispatch(sections, max_steps)
+    with span("walk.dispatch", dispatch=d, W=w, S=max_steps):
+        for kind, pd in sections:
+            with span("walk.section", kind=kind):
+                if kind == "mc":
+                    bits = stable_bits_table(seed, pd.uid, max_steps)
+                    recs = walk_scan_torch(shard.wide, pd.start, bits, max_steps, fetch=fetch)
+                    parts.append(resolve_mc_events(pd, *recs, n_nodes=n_nodes,
+                                                   n_anchors=g.n_anchors, max_steps=max_steps))
+                else:
+                    parts.append(_kind_core(shard, pd, seed, n_anchors=g.n_anchors,
+                                            max_steps=max_steps, kind=kind, fetch=fetch))
     if not parts:
         res = _empty_result(max_steps, mesh.device)
     elif len(parts) == 1:

@@ -11,22 +11,26 @@
                   library, at first use
 
 A wrapper runs the plain version for CPU tensors and launches its kernel for
-CUDA tensors, counting each launch (launch_counts / reset_launch_counts).
+CUDA tensors, counting each launch in the program's counter launch.<kernel>
+(utils/profiling.py; launch_counts / reset_launch_counts read and reset them)
+inside its span kernel.<name>.
 """
 
 from __future__ import annotations
 
-from telomeri_tpu_torch.kernels import greedy_scan, scoring, walk_events, walk_scan
+from telomeri_tpu_torch.utils.profiling import count, counters, reset_counters
 
-_COUNTS = (walk_scan.launches, walk_events.launches, greedy_scan.launches, scoring.launches)
+# what the wrappers count, by kernel (scoring's two variants apart)
+KERNELS = ("walk_scan", "resolve_events", "greedy_scan", "score_os_es2", "score_overlaps")
+for _name in KERNELS:
+    count("launch." + _name, 0)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {k: v for counts in _COUNTS for k, v in counts.items()}
+    now = counters()
+    return {k: now["launch." + k] for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for counts in _COUNTS:
-        for name in counts:
-            counts[name] = 0
+    reset_counters("launch.")

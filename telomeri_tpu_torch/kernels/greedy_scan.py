@@ -37,9 +37,7 @@ import torch
 from telomeri_tpu_torch.kernels import build
 from telomeri_tpu_torch.kernels.walk_common import (check_steps, launch_on, sum_steps,
                                                     walk_outputs)
-
-# launches of the kernel; only greedy_scan_cuda adds to it
-launches = {"greedy_scan": 0}
+from telomeri_tpu_torch.utils.profiling import count, profiler_running, span
 
 KINDS = ("greedy", "mixed")   # csrc/greedy_scan.cu's kind argument: the index
 
@@ -161,6 +159,14 @@ def greedy_scan_cuda(wide: torch.Tensor, pd, seed, n_anchors: int, max_steps: in
     """The CUDA kernel on CUDA tensors; launches on the current stream and
     raises if the launch fails. Returns what greedy_scan_torch returns with the
     local fetch."""
+    if not profiler_running():
+        return _greedy_scan_cuda(wide, pd, seed, n_anchors, max_steps, kind)
+    with span("kernel.greedy_scan"):
+        return _greedy_scan_cuda(wide, pd, seed, n_anchors, max_steps, kind)
+
+
+def _greedy_scan_cuda(wide: torch.Tensor, pd, seed, n_anchors: int, max_steps: int,
+                      kind: str) -> tuple:
     h, w = _check(wide, pd, kind)
     if h % 64:
         raise ValueError(f"the kernel needs H % 64 == 0, got H={h}")
@@ -181,7 +187,7 @@ def greedy_scan_cuda(wide: torch.Tensor, pd, seed, n_anchors: int, max_steps: in
             *[a.data_ptr() for a in out])
     build.check(launch_on(wide.device, lambda stream: lib.telomeri_greedy_scan(*args, stream)),
                 "greedy_scan")
-    launches["greedy_scan"] += 1
+    count("launch.greedy_scan")
     return out
 
 

@@ -33,9 +33,7 @@ import numpy as np
 import torch
 
 from telomeri_tpu_torch.kernels import build
-
-# launches of the kernel, by variant; only the wrappers below add to them
-launches = {"score_os_es2": 0, "score_overlaps": 0}
+from telomeri_tpu_torch.utils.profiling import count, profiler_running, span
 
 
 def score_arrays_np(nm, bl, ol1, ol2, oh1, oh2, el1, el2):
@@ -92,8 +90,16 @@ _kernel = None   # the library's telomeri_score_overlaps, resolved at the first 
 def score_overlaps_cuda(nm, bl, ol1, ol2, oh1, oh2, el1, el2, *, outputs: int = 4):
     """The CUDA kernel on contiguous int32 CUDA tensors. Launches on the current
     stream, raises if the launch fails; returns what score_overlaps_torch does."""
-    global _kernel
     geom = (nm, bl, ol1, ol2, oh1, oh2, el1, el2)
+    if not profiler_running():
+        return _score_overlaps_cuda(geom, outputs)
+    with span("kernel.score"):
+        return _score_overlaps_cuda(geom, outputs)
+
+
+def _score_overlaps_cuda(geom: tuple, outputs: int) -> tuple:
+    global _kernel
+    nm, bl, ol1, ol2, oh1, oh2, el1, el2 = geom
     n = _check_geom(geom)
     dev = nm.device
     if dev.type != "cuda":
@@ -102,7 +108,7 @@ def score_overlaps_cuda(nm, bl, ol1, ol2, oh1, oh2, el1, el2, *, outputs: int = 
         raise ValueError(f"outputs must be 2 or 4, got {outputs}")
     if dev.index != torch.cuda.current_device():   # the launch goes to the current device
         with torch.cuda.device(dev):
-            return score_overlaps_cuda(*geom, outputs=outputs)
+            return _score_overlaps_cuda(geom, outputs)
     if _kernel is None:
         _kernel = build.load().telomeri_score_overlaps
     out = _output_rows(n, outputs, dev)
@@ -113,7 +119,7 @@ def score_overlaps_cuda(nm, bl, ol1, ol2, oh1, oh2, el1, el2, *, outputs: int = 
                  si, os_, es1, es2, n, outputs, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         build.check(rc, "score_overlaps")
-    launches["score_overlaps" if outputs == 4 else "score_os_es2"] += 1
+    count("launch." + ("score_overlaps" if outputs == 4 else "score_os_es2"))
     return out
 
 

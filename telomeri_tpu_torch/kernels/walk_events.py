@@ -35,9 +35,7 @@ import torch
 from telomeri_tpu_torch.kernels import build
 from telomeri_tpu_torch.kernels.walk_common import (check_steps, launch_on, sum_steps,
                                                     walk_outputs)
-
-# launches of the kernel; only resolve_events_cuda adds to it
-launches = {"resolve_events": 0}
+from telomeri_tpu_torch.utils.profiling import count, profiler_running, span
 
 
 def _first_true(m: torch.Tensor, steps_i: torch.Tensor, big: int) -> torch.Tensor:
@@ -112,6 +110,15 @@ def resolve_events_cuda(start, active, nxts, totals, eids_new, adv_new, es_bits_
                         n_anchors: int, max_steps: int) -> tuple:
     """The CUDA kernel on CUDA tensors; launches on the current stream and
     raises if the launch fails. Returns what resolve_events_torch returns."""
+    args = (start, active, nxts, totals, eids_new, adv_new, es_bits_new, n_anchors, max_steps)
+    if not profiler_running():
+        return _resolve_events_cuda(*args)
+    with span("kernel.resolve_events"):
+        return _resolve_events_cuda(*args)
+
+
+def _resolve_events_cuda(start, active, nxts, totals, eids_new, adv_new, es_bits_new,
+                         n_anchors: int, max_steps: int) -> tuple:
     planes = (nxts, totals, eids_new, adv_new, es_bits_new)
     w = _check(start, active, planes, max_steps)
     check_steps(max_steps)
@@ -127,7 +134,7 @@ def resolve_events_cuda(start, active, nxts, totals, eids_new, adv_new, es_bits_
             2 * int(n_anchors), w, max_steps, *[a.data_ptr() for a in out])
     build.check(launch_on(start.device, lambda stream: lib.telomeri_resolve_events(*args, stream)),
                 "resolve_events")
-    launches["resolve_events"] += 1
+    count("launch.resolve_events")
     return out
 
 

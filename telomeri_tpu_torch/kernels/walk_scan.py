@@ -33,9 +33,7 @@ from __future__ import annotations
 import torch
 
 from telomeri_tpu_torch.kernels import build
-
-# launches of the kernel; only walk_scan_cuda adds to it
-launches = {"walk_scan": 0}
+from telomeri_tpu_torch.utils.profiling import count, profiler_running, span
 
 
 def _check(wide: torch.Tensor, start: torch.Tensor, per_walk: torch.Tensor, name: str,
@@ -90,6 +88,14 @@ def walk_scan_cuda(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, s
     """The CUDA kernel on CUDA tensors; launches on the current stream and
     raises if the launch fails. Returns what walk_scan_torch returns over
     stable_bits_table(seed, uid, max_steps)."""
+    if not profiler_running():
+        return _walk_scan_cuda(wide, start, uid, seed, max_steps)
+    with span("kernel.walk_scan"):
+        return _walk_scan_cuda(wide, start, uid, seed, max_steps)
+
+
+def _walk_scan_cuda(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, seed: int,
+                    max_steps: int) -> torch.Tensor:
     h, w = _check(wide, start, uid, "uid", tuple(start.shape))
     if wide.device.type != "cuda":
         raise ValueError("walk_scan_cuda needs CUDA tensors")
@@ -105,7 +111,7 @@ def walk_scan_cuda(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, s
             wide.data_ptr(), h, start.data_ptr(), uid.data_ptr(), int(seed) & 0xFFFFFFFF,
             w, max_steps, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         build.check(rc, "walk_scan")
-    launches["walk_scan"] += 1
+    count("launch.walk_scan")
     return out
 
 

@@ -17,7 +17,9 @@ once, from local rank 0.
 The score, walk and rescue dispatches are timed by DispatchWatch
 (utils/watchdog.py) under the reference's keys, so metrics.json carries the
 same "dispatches" record; on a card each watched body
-synchronizes the device before the record closes.
+synchronizes the device before the record closes. Each stage is a span of the
+profiler's trace (`trace_dir`: the whole run), and metrics.json carries the
+program's counters that the run added (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ from telomeri_tpu_torch.dist.mesh import (
 from telomeri_tpu_torch.graph.tensorize import tensorize
 from telomeri_tpu_torch.io.artifacts import load_graph, load_walks, save_graph, save_walks
 from telomeri_tpu_torch.io.geometry import build_edges, rescore_edges_device
-from telomeri_tpu_torch.utils.profiling import maybe_trace
+from telomeri_tpu_torch.utils.profiling import (count_copy, counters, counters_since,
+                                                maybe_trace, span)
 from telomeri_tpu_torch.walk import engine
 from telomeri_tpu_torch.walk.engine import WalkResult, graph_to_device, run_walks_host
 from telomeri_tpu_torch.walk.rescue import free_walkable_ends, run_rescue_round
@@ -201,7 +204,10 @@ def _consensus(walks: WalkResult, plan: WalkPlan, graph: GraphTensors,
     if walks.nodes.device.type == "cpu" and 0 < cfg.max_walk_batch < len(plan):
         summary = summarize_in_chunks(walks, uid, graph.virtual_base, cfg.max_walk_batch, device)
     else:
-        summary = summarize(walks.to(device), uid, virtual_base=graph.virtual_base)
+        with span("consensus.upload", W=len(plan)):
+            rec = walks.to(device)
+        count_copy(rec, walks.nodes.device, device)
+        summary = summarize(rec, uid, virtual_base=graph.virtual_base)
     return summary_consensus(summary, cfg, cfg.support_mode)
 
 
@@ -227,8 +233,22 @@ def run_pipeline(
     WalkMesh (dist/mesh.py) to shard the walks over its ranks; its device then
     takes the place of `device`. graph / walks artifacts resume the pipeline
     from a stage boundary; trace_dir (or $TELOMERI_TRACE) writes a profiler
-    trace of the walk stage."""
+    trace of the whole run. metrics.counters receives what the program's
+    counters added during the run."""
     metrics = metrics or Metrics()
+    before = counters()
+    with maybe_trace(trace_dir):
+        res = _run(contigs_path, reads_path, paf_rc_path, paf_rr_path, out_path, cfg, metrics,
+                   mesh, graph_artifact, save_graph_path, walks_artifact, save_walks_path,
+                   agp_path, device)
+    metrics.counters = counters_since(before)
+    return res
+
+
+def _run(contigs_path, reads_path, paf_rc_path, paf_rr_path, out_path, cfg: ScaffoldConfig,
+         metrics: Metrics, mesh: WalkMesh | None, graph_artifact, save_graph_path,
+         walks_artifact, save_walks_path, agp_path, device) -> PipelineResult:
+    """run_pipeline's stages, in order."""
     if cfg.graph_placement == "rowshard" and mesh is None:
         raise ValueError("graph_placement='rowshard' shards CSR rows over a "
                          "device mesh; pass --mesh N")
@@ -282,7 +302,7 @@ def run_pipeline(
         if mesh is not None:
             walk_cfg = _resolve_placement(cfg, graph, mesh, metrics)
             resolved_placement = walk_cfg.graph_placement
-            with metrics.stage("run_walks"), maybe_trace(trace_dir), \
+            with metrics.stage("run_walks"), \
                     _watch(metrics, f"{walk_key}:D{mesh.size}", device):
                 # the records stay on their ranks; the gate and the stitcher
                 # fetch the rows they read (fetch_walk_rows)
@@ -290,14 +310,14 @@ def run_pipeline(
             with metrics.stage("consensus"):
                 bridges = compress(cons)
         else:
-            with metrics.stage("run_walks"), maybe_trace(trace_dir), \
-                    _watch(metrics, walk_key, device):
+            with metrics.stage("run_walks"), _watch(metrics, walk_key, device):
                 walks_dev = run_walks_host(graph, plan, cfg, device)
             with metrics.stage("consensus"):
                 cons = _consensus(walks_dev, plan, graph, cfg, device)
                 bridges = compress(cons)
                 walks = walks_dev.to_numpy()
             del walks_dev
+        engine.count_steps_taken(walks)
         if save_walks_path:
             if mesh is not None and spans_hosts(mesh):
                 log.warning("--save-walks skipped: records are sharded across "
@@ -372,7 +392,7 @@ def run_pipeline(
             if rescue_gd is None and resolved_placement != "rowshard":
                 rescue_gd = graph_to_device(graph, device)
             with metrics.stage(f"rescue_round_{ri}"), \
-                    _watch(metrics, f"rescue_walks:R{ri}", device):
+                    _watch(metrics, f"rescue_walks:R{ri}", device), span("rescue.round", index=ri):
                 new, paths_ri, blocked_ends = run_rescue_round(
                     graph, cfg, accepted, ri, gd=rescue_gd,
                     blocked_ends=blocked_ends, device=device, mesh=mesh,

@@ -23,28 +23,35 @@ def setup_logging(verbose: bool = False) -> None:
 
 
 class Metrics:
-    """Accumulates scalar metrics and per-stage wall-clock timings."""
+    """Accumulates scalar metrics, per-stage wall-clock timings and the
+    counters a run added (utils/profiling.py count)."""
 
     def __init__(self) -> None:
         self.values: dict[str, float | int | str] = {}
         self.timings: dict[str, float] = {}
+        self.counters: dict[str, int] = {}
 
     def set(self, key: str, value) -> None:
         self.values[key] = value
 
     @contextmanager
     def stage(self, name: str):
+        """Time a stage, as the span stage.<name> of a running profiler."""
+        # imported here: the host-only commands import this module, and not torch
+        from telomeri_tpu_torch.utils.profiling import span
+
         t0 = time.perf_counter()
         log.info("stage %s: start", name)
         try:
-            yield
+            with span("stage." + name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.timings[name] = self.timings.get(name, 0.0) + dt
             log.info("stage %s: %.3fs", name, dt)
 
     def as_dict(self) -> dict:
-        return {"metrics": self.values, "timings_s": self.timings}
+        return {"metrics": self.values, "timings_s": self.timings, "counters": self.counters}
 
     def dump(self, path: str) -> None:
         with open(path, "w") as f:

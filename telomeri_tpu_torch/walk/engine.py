@@ -56,6 +56,7 @@ from telomeri_tpu_torch.kernels.walk_common import (  # noqa: F401  (the order a
 )
 from telomeri_tpu_torch.kernels.walk_events import resolve_events
 from telomeri_tpu_torch.kernels.walk_scan import walk_scan
+from telomeri_tpu_torch.utils.profiling import count, count_copy, profiler_running, span
 
 _M32 = 0xFFFFFFFF
 
@@ -93,8 +94,12 @@ class WalkResult(NamedTuple):
 
     def to_numpy(self) -> "WalkResult":
         """The same records as host numpy arrays (host records pass through)."""
-        return WalkResult(*[a.cpu().numpy() if isinstance(a, torch.Tensor) else a
-                            for a in self])
+        dev = self.nodes.device if isinstance(self.nodes, torch.Tensor) else "cpu"
+        with span("walk.download", W=len(self.steps)):
+            out = WalkResult(*[a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                               for a in self])
+        count_copy(out, dev, "cpu")
+        return out
 
     def to(self, device) -> "WalkResult":
         return WalkResult(*[torch.as_tensor(a).to(device) for a in self])
@@ -194,16 +199,23 @@ def device_table_bytes(g: GraphTensors) -> int:
 
 def graph_to_device(g: GraphTensors, device) -> GraphDev:
     h = lane_width(g.nbr.shape[1])
-    wide = pack_wide(g.nbr, _cum_arrays(g), g.eid, g.adv, g.es, g.os_, h)
-    return GraphDev(wide=torch.from_numpy(wide).to(device))
+    with span("walk.pack", N=g.nbr.shape[0], H=h):
+        wide = pack_wide(g.nbr, _cum_arrays(g), g.eid, g.adv, g.es, g.os_, h)
+    with span("walk.upload", N=g.nbr.shape[0], H=h):
+        gd = GraphDev(wide=torch.from_numpy(wide).to(device))
+    count_copy(gd, "cpu", device)
+    return gd
 
 
 def plan_to_device(p: WalkPlan, device) -> PlanDev:
     put = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
-    return PlanDev(start=put(p.start, torch.int32),
-                   first_edge=put(p.first_edge, torch.int32),
-                   mode=put(p.mode, torch.int32), uid=put(p.uid, torch.int32),
-                   active=put(p.active, torch.bool))
+    with span("plan.upload", W=len(p.start)):
+        pd = PlanDev(start=put(p.start, torch.int32),
+                     first_edge=put(p.first_edge, torch.int32),
+                     mode=put(p.mode, torch.int32), uid=put(p.uid, torch.int32),
+                     active=put(p.active, torch.bool))
+    count_copy(pd, "cpu", device)
+    return pd
 
 
 # --- scans ---------------------------------------------------------------------
@@ -246,14 +258,39 @@ def _kind_core(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int, max_steps: int
     return WalkResult(*out)
 
 
+def count_dispatch(sections: list[tuple[str, PlanDev]], max_steps: int) -> tuple[int, int]:
+    """Count one walk dispatch over `sections` in walk.dispatches, walk.walks
+    and walk.steps_scanned (every section scans max_steps steps); returns the
+    dispatch's number and its walks, the ids of its span walk.dispatch."""
+    w = 0
+    for _, pd in sections:
+        w += pd.start.shape[0]
+    count("walk.walks", w)
+    count("walk.steps_scanned", w * max_steps)
+    return count("walk.dispatches"), w
+
+
 def run_walks_kind(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int,
                    max_steps: int, kind: str) -> WalkResult:
     """One scan specialised by section kind: "mc" (all-MC, first_edge == -1),
-    "greedy" (no RNG) or "mixed" (any modes)."""
+    "greedy" (no RNG) or "mixed" (any modes); the span walk.section."""
+    if not profiler_running():
+        return _run_kind(gd, p, seed, n_anchors, max_steps, kind)
+    with span("walk.section", kind=kind):
+        return _run_kind(gd, p, seed, n_anchors, max_steps, kind)
+
+
+def _run_kind(gd: GraphDev, p: PlanDev, seed, n_anchors: int, max_steps: int,
+              kind: str) -> WalkResult:
     if kind == "mc":
         return run_walks_mc(gd, p, seed, n_anchors=n_anchors, max_steps=max_steps)
-    return _kind_core(gd, p, seed, n_anchors=n_anchors, max_steps=max_steps,
-                      kind=kind)
+    return _kind_core(gd, p, seed, n_anchors=n_anchors, max_steps=max_steps, kind=kind)
+
+
+def count_steps_taken(walks) -> None:
+    """Add the steps of walk records to walk.steps_taken: a WalkResult, or a
+    mesh rank's ShardedWalks (its own rows)."""
+    count("walk.steps_taken", int(getattr(walks, "local", walks).steps.sum()))
 
 
 def run_walks(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int,
@@ -303,14 +340,24 @@ def _empty_result(max_steps: int, device) -> WalkResult:
 def run_walks_prepared(gd: GraphDev, sections: list[tuple[str, PlanDev]], seed, *,
                        n_anchors: int, max_steps: int) -> WalkResult:
     """One specialised scan per device-resident section, concatenated back into
-    plan row order."""
+    plan row order; the span walk.dispatch."""
     if not sections:   # graph with no walkable anchor ends
         return _empty_result(max_steps, gd.wide.device)
+    d, w = count_dispatch(sections, max_steps)
+    if not profiler_running():
+        return _run_sections(gd, sections, seed, n_anchors, max_steps)
+    with span("walk.dispatch", dispatch=d, W=w, S=max_steps):
+        return _run_sections(gd, sections, seed, n_anchors, max_steps)
+
+
+def _run_sections(gd: GraphDev, sections: list[tuple[str, PlanDev]], seed, n_anchors: int,
+                  max_steps: int) -> WalkResult:
     parts = [run_walks_kind(gd, pd, seed, n_anchors=n_anchors, max_steps=max_steps,
                             kind=kind) for kind, pd in sections]
     if len(parts) == 1:
         return parts[0]
-    return WalkResult(*[torch.cat(a, dim=0) for a in zip(*parts)])
+    with span("walk.concat"):
+        return WalkResult(*[torch.cat(a, dim=0) for a in zip(*parts)])
 
 
 def run_walks_sectioned(gd: GraphDev, plan: WalkPlan, seed, *, n_anchors: int,
@@ -338,10 +385,12 @@ def run_walks_chunked(gd: GraphDev, plan: WalkPlan, seed, *, n_anchors: int,
             keep = end - pos
             sub = (_slice_plan_padded(plan, pos, hi, max_batch) if multi
                    else _slice_plan(plan, pos, end))
-            res = run_walks_kind(gd, plan_to_device(sub, dev), seed,
-                                 n_anchors=n_anchors, max_steps=max_steps,
-                                 kind=kind or "mixed")
-            parts.append(WalkResult(*[a[:keep].cpu() for a in res]))
+            with span("walk.chunk", index=len(parts), kind=kind or "mixed", W=len(sub.start)):
+                res = run_walks_prepared(gd, [(kind or "mixed", plan_to_device(sub, dev))], seed,
+                                         n_anchors=n_anchors, max_steps=max_steps)
+                with span("walk.download", W=keep):
+                    parts.append(WalkResult(*[a[:keep].cpu() for a in res]))
+                count_copy(parts[-1], dev, "cpu")
             pos = end
     if not parts:
         return _empty_result(max_steps, "cpu")

@@ -27,7 +27,8 @@ from telomeri_tpu_torch.dist.mesh import (
     gathered_consensus,
     run_walk_shards,
 )
-from telomeri_tpu_torch.walk.engine import GraphDev, graph_to_device, run_walks_sectioned
+from telomeri_tpu_torch.walk.engine import (GraphDev, count_steps_taken, graph_to_device,
+                                            run_walks_sectioned)
 
 RESCUE_UID_BASE = 1 << 30   # rescue uids never collide with base plan uids
 MAX_RESCUE_WALKS = 1 << 20  # hard batch cap: many free ends -> fewer walks/end
@@ -115,6 +116,7 @@ def run_rescue_round(
         cons = walk_consensus(res, torch.from_numpy(plan.uid), cfg,
                               virtual_base=graph.virtual_base, support="read_diverse")
         res = res.to_numpy()
+    count_steps_taken(res)
     rows, blocked_rows = read_diversity_gate(
         compress(cons), cons, res, graph.virtual_base, mesh=mesh,
         split_read=graph.split_read)
