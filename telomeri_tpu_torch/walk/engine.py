@@ -8,9 +8,13 @@ cumsum, and die on a revisit (cycle kill); a walk succeeds on stepping onto
 another anchor node (id < 2 * n_anchors).
 
 Device layout: GraphDev.wide is the reference's packed (N, 6H) int32 table
-[nbr | cum | eid | adv | es_bits | os_bits]. The walk stage on one device is
-one launch per part, as the reference's is one program (_run_walks_multi): the
-MC section runs the historyless scan (kernels/walk_scan.py), then
+[nbr | cum | eid | adv | es_bits | os_bits]. On a card the MC scan also reads
+GraphDev.picks, the (N, H, 4) int32 pick plane derived from it (slot j's nbr,
+eid, adv and es_bits side by side: one 16-byte sector a step instead of four
+sectors in four blocks), built once per table on the first CUDA MC scan; CPU
+tables and the row-sharded placement never build it. The walk stage on one
+device is one launch per part, as the reference's is one program
+(_run_walks_multi): the MC section runs the historyless scan (kernels/walk_scan.py), then
 resolve_mc_events finds each walk's first event from the per-step records
 (kernels/walk_events.py); greedy and mixed sections run _kind_core, the scan
 with the in-scan visited table (kernels/greedy_scan.py). Each part is a
@@ -55,22 +59,41 @@ from telomeri_tpu_torch.kernels.walk_common import (  # noqa: F401  (the order a
     sum_steps as _sum_steps,
 )
 from telomeri_tpu_torch.kernels.walk_events import resolve_events
-from telomeri_tpu_torch.kernels.walk_scan import walk_scan
+from telomeri_tpu_torch.kernels.walk_scan import pick_plane, walk_scan
 from telomeri_tpu_torch.utils.profiling import count, count_copy, profiler_running, span
 
 _M32 = 0xFFFFFFFF
 
 
-class GraphDev(NamedTuple):
+class GraphDev:
     """Device-resident packed walk table (see the reference's GraphDev).
 
-    wide: (N, 6H) int32, column blocks [nbr | cum | eid | adv | es_bits | os_bits]."""
+    wide: (N, 6H) int32, column blocks [nbr | cum | eid | adv | es_bits | os_bits].
+    picks: the MC kernel's pick plane, (N, H, 4) int32 (kernels/walk_scan.py
+    pick_plane), derived from `wide` on its first read and kept for the
+    table's life. So `wide` is read-only (a new table is a new GraphDev) and
+    is not to be edited in place after construction: the plane would no
+    longer match it."""
 
-    wide: torch.Tensor
+    __slots__ = ("_wide", "_picks")
+
+    def __init__(self, wide: torch.Tensor):
+        self._wide = wide
+        self._picks: torch.Tensor | None = None
+
+    @property
+    def wide(self) -> torch.Tensor:
+        return self._wide
 
     @property
     def h(self) -> int:
         return self.wide.shape[1] // 6
+
+    @property
+    def picks(self) -> torch.Tensor:
+        if self._picks is None:
+            self._picks = pick_plane(self.wide)
+        return self._picks
 
 
 class PlanDev(NamedTuple):
@@ -197,13 +220,23 @@ def device_table_bytes(g: GraphTensors) -> int:
     return g.nbr.shape[0] * 6 * lane_width(g.nbr.shape[1]) * 4
 
 
+def device_walk_bytes(g: GraphTensors, device) -> int:
+    """Device footprint of the walk stage's tables on `device`: the packed
+    table, and on a card also the MC kernel's pick plane (N * H * 4 int32,
+    2/3 of the table), which GraphDev.picks builds beside it."""
+    need = device_table_bytes(g)
+    if torch.device(device).type == "cuda":
+        need += need * 4 // 6
+    return need
+
+
 def graph_to_device(g: GraphTensors, device) -> GraphDev:
     h = lane_width(g.nbr.shape[1])
     with span("walk.pack", N=g.nbr.shape[0], H=h):
         wide = pack_wide(g.nbr, _cum_arrays(g), g.eid, g.adv, g.es, g.os_, h)
     with span("walk.upload", N=g.nbr.shape[0], H=h):
         gd = GraphDev(wide=torch.from_numpy(wide).to(device))
-    count_copy(gd, "cpu", device)
+    count_copy([gd.wide], "cpu", device)
     return gd
 
 
@@ -223,8 +256,10 @@ def plan_to_device(p: WalkPlan, device) -> PlanDev:
 def run_walks_mc(gd: GraphDev, p: PlanDev, seed, *, n_anchors: int,
                  max_steps: int) -> WalkResult:
     """All-MC section (the reference's _run_walks_mc_fast / _mc_fast_core): the
-    historyless scan, then post-hoc event resolution."""
-    nxt, tot, eid, adv, es = walk_scan(gd.wide, p.start, p.uid, seed, max_steps)
+    historyless scan (on a card over the table's pick plane, built on the
+    first call), then post-hoc event resolution."""
+    picks = gd.picks if gd.wide.is_cuda else None
+    nxt, tot, eid, adv, es = walk_scan(gd.wide, p.start, p.uid, seed, max_steps, picks)
     return resolve_mc_events(p, nxt, tot, eid, adv, es,
                              n_nodes=int(gd.wide.shape[0]), n_anchors=n_anchors,
                              max_steps=max_steps)

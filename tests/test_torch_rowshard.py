@@ -183,6 +183,33 @@ def test_plan_not_divisible_raises(toy_graph):
                              mesh=fake_mesh(0, 8))
 
 
+def test_auto_placement_counts_the_pick_plane_on_a_card(toy_graph, monkeypatch):
+    """On a card each replicated rank builds the MC kernel's pick plane beside
+    the table (2/3 of it, N x H x 16 B): a table that fits the 75% budget alone
+    but not with its plane is row-sharded there, and replicated on a CPU mesh,
+    which builds no plane."""
+    from telomeri_tpu_torch.utils.logging import Metrics
+
+    table = engine.device_table_bytes(toy_graph)
+    n, h = toy_graph.nbr.shape[0], engine.lane_width(toy_graph.nbr.shape[1])
+    assert engine.device_walk_bytes(toy_graph, CPU) == table
+    assert engine.device_walk_bytes(toy_graph, "cuda") == table + n * h * 16
+    cfg = ScaffoldConfig(**CFG, graph_placement="auto")
+    card = WalkMesh(group=None, rank=0, size=4, local_rank=0, device=torch.device("cuda"))
+    both = table + n * h * 16
+    resolve = lambda mesh: tpipe._resolve_placement(cfg, toy_graph, mesh,
+                                                    Metrics()).graph_placement
+    # the table alone fits, table and plane do not
+    monkeypatch.setattr(tpipe, "_device_memory_limit", lambda device: int(table / 0.75) + 4)
+    assert resolve(card) == "rowshard"
+    assert resolve(fake_mesh(0, 4)) == "replicated"
+    # both just fit, and just do not
+    monkeypatch.setattr(tpipe, "_device_memory_limit", lambda device: int(both / 0.75) + 4)
+    assert resolve(card) == "replicated"
+    monkeypatch.setattr(tpipe, "_device_memory_limit", lambda device: int(both / 0.75) - 4)
+    assert resolve(card) == "rowshard"
+
+
 def test_auto_placement_resolution(toy_graph, monkeypatch):
     """"auto": replicated for a small graph; rowshard only when the table
     exceeds 75% of the device's memory AND the mesh has more than one device."""
