@@ -355,16 +355,14 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
-FP32_OPS_PER_S = 67e12       # H100 non-tensor float32 rate, taken for int32 too
-
-
 def _bound(n_bytes: float, n_ops: float) -> dict:
     """bound_ms and bound_by of one kernel call: the larger of its bytes over
-    the memory rate and its operations over the peak rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations", bound_bytes=n_bytes)
+    the memory rate and its operations over the peak rate (the H100's,
+    benchmark/roofline.py)."""
+    from benchmark import roofline
+
+    t, by = roofline.bound_s(n_bytes, n_ops)
+    return dict(bound_ms=t * 1e3, bound_by=by, bound_bytes=n_bytes)
 
 
 # --- phases --------------------------------------------------------------------
@@ -530,17 +528,17 @@ def phase_scoring(results: dict) -> None:
 
 
 def _mc_inputs(graph, plan, device):
-    from telomeri_tpu_torch.walk import engine
+    from telomeri_tpu_torch.kernels.walk_table import graph_to_device
 
-    return engine.graph_to_device(graph, device), _section(plan, "mc", device)
+    return graph_to_device(graph, device), _section(plan, "mc", device)
 
 
 def _plain_scan(wide, start, uid, seed, s):
     """The fused kernel's plain version: the draw table, then the plain scan."""
     from telomeri_tpu_torch.kernels import walk_scan
-    from telomeri_tpu_torch.walk import engine
+    from telomeri_tpu_torch.kernels.walk_common import stable_bits_table
 
-    return walk_scan.walk_scan_torch(wide, start, engine.stable_bits_table(seed, uid, s), s)
+    return walk_scan.walk_scan_torch(wide, start, stable_bits_table(seed, uid, s), s)
 
 
 def _outputs_equal(name: str, kern, plain) -> float:
@@ -614,46 +612,34 @@ def _greedy_plans(pd, h: int):
 
 def _scan_bound(kern, wide, pd, s) -> dict:
     """The least time the card could take for this scan, from this run's data:
-    start and uid read once, the cum block of every distinct row visited and
-    the four picked words of every distinct (row, edge) read once, the five
-    records written once; against H compares and half a Threefry block (about
-    60 integer operations) per walk and step."""
+    benchmark/roofline.py scan_need of the distinct rows visited and the
+    distinct (row, edge) picks of its records."""
     import torch
 
-    w, h = pd.start.shape[0], wide.shape[1] // 6
+    from benchmark import roofline
+    from telomeri_tpu_torch.kernels.walk_table import table_h
+
     seq = torch.cat([pd.start[:, None], kern[0][:, :-1]], dim=1).long()   # (W, S)
     col = torch.arange(s, device=seq.device)[None, :].expand_as(seq)
     last = torch.cummax(torch.where(seq >= 0, col, 0), dim=1).values   # a pad slot stays put
-    cur = seq.gather(1, last)
-    rows = int(torch.unique(cur).numel())
-    picks = int(torch.unique(cur * 2**32 + (kern[2].long() & 0xFFFFFFFF)).numel())
-    n_bytes = 8 * w + rows * 4 * h + picks * 16 + 5 * w * s * 4
-    return dict(_bound(n_bytes, w * s * (h + 60)), rows_visited=rows, picks=picks)
-
-
-def _walk_output_bytes(w: int, s: int) -> int:
-    """nodes (S+1) and eids (S) int32, steps, terminal, path_len int32,
-    score_sum float32 and success one byte, for w walks."""
-    return w * ((2 * s + 1) * 4 + 17)
+    counter = roofline.ScanCounter(int(wide.shape[0]), seq.device)
+    counter.add(seq.gather(1, last), kern[2])
+    rows, picks = counter.counts()
+    need = roofline.scan_need(int(pd.start.shape[0]), s, table_h(wide), rows, picks)
+    return dict(_bound(*need), rows_visited=rows, picks=picks)
 
 
 def _resolve_bound(res, pd, s) -> dict:
-    """The least time for this event resolution, from this run's data: start
-    and active read once; per active walk nxt and total up to and including its
-    first event and eid, adv and es of its taken steps; the outputs written
-    once. Beside it the all-planes count: every record read once."""
-    import torch
+    """The least time for this event resolution, from this run's data
+    (benchmark/roofline.py resolve_need), and beside it the all-planes count:
+    every record read once."""
+    from benchmark import roofline
 
     w = int(pd.start.shape[0])
-    steps = res.steps.long()
-    reads = torch.where(pd.active, torch.where(res.success, steps, torch.clamp(steps + 1, max=s)),
-                        0)
-    out = _walk_output_bytes(w, s)
-    n_bytes = 5 * w + 8 * int(reads.sum()) + 12 * int(steps.sum()) + out
-    all_planes = 5 * w + 5 * 4 * w * s + out
-    return dict(_bound(n_bytes, int((reads * (reads + 1) // 2).sum())),
+    all_planes = roofline.resolve_all_planes_bytes(w, s)
+    return dict(_bound(*roofline.resolve_need(w, s, res.steps, res.success, pd.active)),
                 all_planes_bytes=all_planes,
-                all_planes_bound_ms=all_planes / HBM_BYTES_PER_S * 1e3)
+                all_planes_bound_ms=all_planes / roofline.HBM_BYTES_PER_S * 1e3)
 
 
 def _greedy_bound(res, pd, h: int, s: int) -> dict:
@@ -669,6 +655,8 @@ def _greedy_bound(res, pd, h: int, s: int) -> dict:
     the picked words). The chain binds where chain_ms is the larger."""
     import torch
 
+    from benchmark.roofline import walk_output_bytes
+
     w = int(pd.start.shape[0])
     steps = res.steps.long()
     ran = torch.where(pd.active, torch.clamp(steps + (~res.success).long(), max=s), 0)
@@ -676,7 +664,7 @@ def _greedy_bound(res, pd, h: int, s: int) -> dict:
     rows = int(torch.unique(res.nodes[fetched]).numel())
     os_rows = int(torch.unique(res.nodes[fetched & (pd.mode == 0)[:, None]]).numel())
     edges = int(torch.unique(res.eids[res.eids >= 0]).numel())
-    n_bytes = 13 * w + (rows + os_rows) * h * 4 + 12 * edges + _walk_output_bytes(w, s)
+    n_bytes = 13 * w + (rows + os_rows) * h * 4 + 12 * edges + walk_output_bytes(w, s)
     chain = int(ran.max()) if w else 0
     return dict(_bound(n_bytes, h * int((ran * (ran + 1) // 2).sum())), rows_fetched=rows,
                 os_rows_fetched=os_rows, edges_taken=edges, chain_steps=chain,
@@ -708,7 +696,8 @@ def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True,
     version's and its bound, and the MC section's time. split: also the
     section part by part, with launch counts."""
     from telomeri_tpu_torch.bench import device_launches
-    from telomeri_tpu_torch.kernels import greedy_scan, walk_events, walk_scan
+    from telomeri_tpu_torch.kernels import greedy_scan, walk_events, walk_scan, walk_table
+    from telomeri_tpu_torch.kernels.walk_common import stable_bits_table
     from telomeri_tpu_torch.walk import engine
 
     gd, pd = _mc_inputs(graph, plan, DEVICE)
@@ -751,7 +740,7 @@ def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True,
     results[f"resolve_events@{name}"] = dict(max_abs_err=res_err, **t_res)
     results[f"greedy_scan@{name}"] = dict(max_abs_err=max(g_err, m_err), **t_greedy)
     emit("walk_scan", graph=name, walks=w, max_steps=s, h=gd.h, nodes=n_nodes,
-         table_mb=engine.device_table_bytes(graph) / 1e6,
+         table_mb=walk_table.device_table_bytes(graph) / 1e6,
          walks_per_s=w / (t["ms"] / 1e3), plain_walks_per_s=w / (t["plain_ms"] / 1e3),
          mc_section_ms=section_ms, mc_section_walks_per_s=w / (section_ms / 1e3),
          successful=int(res_k.success.sum()), cpu_checked=cpu_check, **t)
@@ -775,7 +764,7 @@ def _check_walk_scan(name, graph, plan, cfg, results, cpu_check: bool = True,
          share_of_bound=t_res["share_of_bound"])
     # the section part by part: the draw table in torch, as the section ran it
     # before the draw moved into the kernel
-    draw = lambda: engine.stable_bits_table(seed, pd.uid, s)
+    draw = lambda: stable_bits_table(seed, pd.uid, s)
     parts = {k: dict(ms=cuda_ms(fn, 10), launches=device_launches(fn))
              for k, fn in (("draw_table", draw), ("fused_scan", scan), ("resolve", resolve),
                            ("greedy", lambda: engine.run_walks_kind(
@@ -816,8 +805,8 @@ def _check_scan_shapes(tandem_dir: str) -> None:
     import numpy as np
     import torch
 
+    from telomeri_tpu_torch.kernels.walk_table import pack_wide, table_h
     from telomeri_tpu_torch.pipeline import ScaffoldConfig
-    from telomeri_tpu_torch.walk.engine import pack_wide
     from telomeri_tpu_torch.walk.rescue import RESCUE_UID_BASE
 
     checked = []
@@ -825,10 +814,10 @@ def _check_scan_shapes(tandem_dir: str) -> None:
     def check(name, wide, p, seed, s, n_anchors):
         _, _, res, _ = _scan_equals_plain(name, wide, p, seed, s, n_anchors)
         greedy = {}
-        for kind, plan in zip(("greedy", "mixed"), _greedy_plans(p, wide.shape[1] // 6)):
+        for kind, plan in zip(("greedy", "mixed"), _greedy_plans(p, table_h(wide))):
             _, g = _greedy_equals_plain(name, wide, plan, seed, s, n_anchors, kind)
             greedy[kind] = int(g.success.sum())
-        checked.append(dict(case=name, h=wide.shape[1] // 6, walks=int(p.start.shape[0]),
+        checked.append(dict(case=name, h=table_h(wide), walks=int(p.start.shape[0]),
                             successful=int(res.success.sum()), greedy_successful=greedy))
 
     _, graph, plan = _build(tandem_dir, ScaffoldConfig(**_CORRECTED, max_steps=48))
@@ -1117,11 +1106,11 @@ def _rowshard_fetch_cost(mesh, graph, plan) -> None:
     import torch
 
     from telomeri_tpu_torch.dist.rowshard import _collective_fetch, shard_graph_rows
-    from telomeri_tpu_torch.walk import engine
+    from telomeri_tpu_torch.kernels.walk_table import graph_to_device
 
     lo, hi = plan.sections["mc"]
     cur = torch.from_numpy(plan.start[lo:hi]).to(mesh.device)
-    wide = engine.graph_to_device(graph, mesh.device).wide
+    wide = graph_to_device(graph, mesh.device).wide
     fetch = _collective_fetch(shard_graph_rows(graph, mesh).wide, mesh)
     require(torch.equal(fetch(cur), wide[cur.long()]), "row-sharded fetch != local gather")
     ms, local_ms = paired_ms(lambda: fetch(cur), lambda: wide[cur.long()], 20)
@@ -1329,11 +1318,12 @@ def _bench_walk_rows(results: dict, part: str, launches: dict, wide, pd, seed, s
     import torch
 
     from telomeri_tpu_torch.kernels import greedy_scan, walk_events, walk_scan
+    from telomeri_tpu_torch.kernels.walk_table import pick_plane, table_h
 
-    w, h = int(pd.start.shape[0]), wide.shape[1] // 6
+    w, h = int(pd.start.shape[0]), table_h(wide)
     kern, err, res, res_err = _scan_equals_plain(f"bench {part}", wide, pd, seed, s, n_anchors)
     row = dict(path=f"bench {part}")
-    picks = walk_scan.pick_plane(wide)   # once per table, as GraphDev builds it
+    picks = pick_plane(wide)   # once per table, as GraphDev builds it
     t = kernel_times(lambda: walk_scan.walk_scan_cuda(wide, pd.start, pd.uid, seed, s,
                                                       picks=picks),
                      lambda: _plain_scan(wide, pd.start, pd.uid, seed, s),
@@ -1381,7 +1371,7 @@ def phase_bench(results: dict) -> None:
 
     from telomeri_tpu_torch import bench
     from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts, scoring
-    from telomeri_tpu_torch.walk import engine
+    from telomeri_tpu_torch.kernels.walk_table import device_table_bytes
 
     t_phase = time.perf_counter()
     label = bench.device_label(torch.device(DEVICE))
@@ -1411,7 +1401,7 @@ def phase_bench(results: dict) -> None:
         line = bench.emit(walks_per_s, steps_per_s, oracle, plan.n_active, label)
         cells[cell] = line["value"]
         emit("bench", cell=cell, mc_walks_per_end=mc,
-             table_mb=engine.device_table_bytes(graph) / 1e6,
+             table_mb=device_table_bytes(graph) / 1e6,
              sections=plan.sections, split_ms=split, launches=counts[cell], **line)
         # the cell's sections, as bench_walks ran them: every walk against the
         # plain versions
@@ -1478,7 +1468,8 @@ def phase_chunked(ecoli_dir: str) -> None:
     import torch
 
     from telomeri_tpu_torch.pipeline import ScaffoldConfig, _consensus
-    from telomeri_tpu_torch.walk.engine import device_table_bytes, run_walks_host
+    from telomeri_tpu_torch.kernels.walk_table import device_table_bytes
+    from telomeri_tpu_torch.walk.engine import run_walks_host
 
     base_cfg = ScaffoldConfig(device_scoring="on")
     _, graph, plan = _build(ecoli_dir, base_cfg)

@@ -215,11 +215,8 @@ def walk_sections_split(cfg, gd, sections, *, n_nodes: int, n_anchors: int, devi
 def bench_walks(cfg, graph, plan, repeats: int, device="cuda"):
     """(walks/s, walk-steps/s, the section split) of run_walks_prepared on a
     device-resident table and plan."""
-    from telomeri_tpu_torch.walk.engine import (
-        graph_to_device,
-        prepare_plan_sections,
-        run_walks_prepared,
-    )
+    from telomeri_tpu_torch.kernels.walk_table import graph_to_device
+    from telomeri_tpu_torch.walk.engine import prepare_plan_sections, run_walks_prepared
 
     device = torch.device(device)
     gd = graph_to_device(graph, device)
@@ -429,35 +426,37 @@ def synthetic_table(rng, n: int, k: int = SYNTH_K, n_anchors: int = SYNTH_ANCHOR
     64-bit draws. Here each column block is written into the table as it is
     drawn, so the host holds the table, one draw and one mask (about 13.5 GB at
     that size); the values are the same."""
-    from telomeri_tpu_torch.walk.engine import lane_width, mc_weights
+    from telomeri_tpu_torch.kernels.walk_table import (BLOCKS, PAD, blocks, lane_width,
+                                                       mc_weights, table_shape)
 
     h = lane_width(k)
     if n * k >= 2**31 - 1:
         raise ValueError(f"edge ids of {n} x {k} slots do not fit int32")
     deg = rng.integers(4, k + 1, n).astype(np.int32)
     mask = np.arange(k, dtype=np.int32)[None, :] < deg[:, None]
-    wide = np.empty((n, 6 * h), np.int32)
-    for b, fill in ((0, -1), (2, -1), (3, 0), (4, 0), (5, 0)):   # slots past K
-        wide[:, b * h + k:(b + 1) * h] = fill
+    wide = np.empty(table_shape(n, h), np.int32)
+    row = blocks(wide)
+    for view, name in zip(row, BLOCKS):                          # slots past K
+        view[:, k:] = PAD[name]                                  # (cum's: below)
     draw = rng.integers(2 * n_anchors, n, (n, k))
     draw[~mask] = -1
-    wide[:, :k] = draw                                           # nbr
+    row.nbr[:, :k] = draw
     es = rng.uniform(100, 5000, (n, k)).astype(np.float32)
     es[~mask] = 0
-    wide[:, 4 * h:4 * h + k] = es.view(np.int32)                 # es_bits
-    wide[:, 5 * h:5 * h + k] = es.view(np.int32)                 # os_bits
+    row.es_bits[:, :k] = es.view(np.int32)
+    row.os_bits[:, :k] = es.view(np.int32)
     step = max(1, 2**20 // k * 16)
     for lo in range(0, n, step):                                 # cum, a block of rows at a time
         hi = min(lo + step, n)
         cum = np.cumsum(mc_weights(es[lo:hi]), axis=1, dtype=np.int64)
-        wide[lo:hi, h:h + k] = cum
-        wide[lo:hi, h + k:2 * h] = cum[:, -1:]                   # pads carry the row total
+        row.cum[lo:hi, :k] = cum
+        row.cum[lo:hi, k:] = cum[:, -1:]                         # pads carry the row total
         eid = np.arange(lo * k, hi * k, dtype=np.int64).reshape(hi - lo, k)
-        wide[lo:hi, 2 * h:2 * h + k] = np.where(mask[lo:hi], eid, -1)
+        row.eid[lo:hi, :k] = np.where(mask[lo:hi], eid, -1)
     del es
     draw = rng.integers(100, 3000, (n, k))
     draw[~mask] = 0
-    wide[:, 3 * h:3 * h + k] = draw                              # adv
+    row.adv[:, :k] = draw
     return wide
 
 
@@ -493,17 +492,20 @@ def _synthetic_walks(gd, pd, device, calls: int = 10) -> tuple[float, int]:
 def hg002_host_bytes(n: int) -> int:
     """Host memory that building the N-node table takes at its peak: the
     table, one 64-bit draw, the mask, and 1 GiB beside them."""
-    return n * 6 * SYNTH_K * 4 + n * SYNTH_K * 9 + 2**30
+    from telomeri_tpu_torch.kernels.walk_table import lane_width, nbytes, table_shape
+
+    return nbytes(table_shape(n, lane_width(SYNTH_K))) + n * SYNTH_K * 9 + 2**30
 
 
 def hg002_problem(device, n: int):
     """(table, plan) of the hg002-graph bench on `device`: N oriented nodes and
     SYNTH_WALKS MC walks from default_rng(0). MemoryError where the host
     cannot hold the table's build."""
-    from telomeri_tpu_torch.walk.engine import GraphDev
+    from telomeri_tpu_torch.kernels.walk_table import GraphDev, lane_width, nbytes, table_shape
 
     device = torch.device(device)
-    table_bytes, need, free = n * 6 * SYNTH_K * 4, hg002_host_bytes(n), host_memory_available()
+    table_bytes = nbytes(table_shape(n, lane_width(SYNTH_K)))
+    need, free = hg002_host_bytes(n), host_memory_available()
     log(f"hg002 graph: N={n:,}, table {table_bytes/2**30:.2f} GiB; host memory available "
         f"{'unknown' if free is None else f'{free/2**30:.1f} GiB'}, needs about "
         f"{need/2**30:.1f} GiB")
@@ -550,7 +552,7 @@ def bench_hg002_graph(device="cuda", n: int | None = None) -> dict:
 def bench_sweep(device="cuda", n: int = SWEEP_N, widths=SWEEP_WIDTHS) -> list[dict]:
     """BENCH_SCALE=sweep: walks/s against the batch width W on a fixed
     synthetic table, to find where the batch size stops paying."""
-    from telomeri_tpu_torch.walk.engine import GraphDev
+    from telomeri_tpu_torch.kernels.walk_table import GraphDev
 
     device = torch.device(device)
     rng = np.random.default_rng(0)

@@ -41,12 +41,8 @@ from telomeri_tpu_torch.graph.tensorize import GraphTensors
 from telomeri_tpu_torch.walk.plan import WalkPlan
 from telomeri_tpu_torch.consensus.grouping import ConsensusResult, WalkSummary, walk_consensus
 from telomeri_tpu_torch.utils.profiling import span
-from telomeri_tpu_torch.walk.engine import (
-    GraphDev,
-    WalkResult,
-    graph_to_device,
-    run_walks_sectioned,
-)
+from telomeri_tpu_torch.kernels.walk_table import GraphDev, graph_to_device
+from telomeri_tpu_torch.walk.engine import WalkResult, run_walks_sectioned
 
 
 class WalkMesh(NamedTuple):

@@ -2,9 +2,9 @@
 
 For graphs whose packed walk table does not fit one device (pipeline.py
 _resolve_placement), rank i holds rows [i*N/D, (i+1)*N/D) of the (N, 6H) int32
-table, padded to a multiple of the world size with dead rows (nbr and eid -1,
-cum 0, so the row total is 0), and every walk step fetches its rows from their
-owners with two collectives:
+table, padded to a multiple of the world size with dead rows (kernels/walk_table.py
+dead_rows: the row total is 0), and every walk step fetches its rows from
+their owners with two collectives:
 
     cur_all = all_gather(cur_local)                        # (W,) int32
     part    = where(owned, table_local[cur_all - off], 0)  # masked local gather
@@ -36,19 +36,16 @@ import torch.distributed as dist
 from telomeri_tpu_torch.graph.tensorize import GraphTensors
 from telomeri_tpu_torch.walk.plan import WalkPlan
 from telomeri_tpu_torch.dist.mesh import ShardedWalks, WalkMesh, shard_plan
+from telomeri_tpu_torch.kernels.walk_common import stable_bits_table
 from telomeri_tpu_torch.kernels.walk_scan import walk_scan_torch
+from telomeri_tpu_torch.kernels.walk_table import GraphDev, cum_weights, dead_rows, lane_width, pack_wide
 from telomeri_tpu_torch.walk.engine import (
-    GraphDev,
     WalkResult,
-    _cum_arrays,
     _empty_result,
     _kind_core,
     count_dispatch,
-    lane_width,
-    pack_wide,
     prepare_plan_sections,
     resolve_mc_events,
-    stable_bits_table,
 )
 from telomeri_tpu_torch.utils.profiling import span
 
@@ -57,13 +54,10 @@ def shard_graph_rows(g: GraphTensors, mesh: WalkMesh) -> GraphDev:
     """This rank's rows of the packed table, padded with dead rows so that the
     row count divides the world size."""
     h = lane_width(g.nbr.shape[1])
-    wide = pack_wide(g.nbr, _cum_arrays(g), g.eid, g.adv, g.es, g.os_, h)
+    wide = pack_wide(g.nbr, cum_weights(g), g.eid, g.adv, g.es, g.os_, h)
     n_pad = -wide.shape[0] % mesh.size
     if n_pad:
-        pad = np.zeros((n_pad, wide.shape[1]), np.int32)
-        pad[:, :h] = -1           # nbr
-        pad[:, 2 * h:3 * h] = -1  # eid
-        wide = np.concatenate([wide, pad], axis=0)
+        wide = np.concatenate([wide, dead_rows(n_pad, h)], axis=0)
     per = wide.shape[0] // mesh.size
     mine = np.ascontiguousarray(wide[mesh.rank * per:(mesh.rank + 1) * per])
     return GraphDev(wide=torch.from_numpy(mine).to(mesh.device))

@@ -9,8 +9,8 @@ launcher `--mesh N` starts its N ranks itself, as the CLI does):
 
   1. every edge is re-scored on the device (kernels/scoring.py, 2 outputs), and
      the packed walk table's cum and ES blocks are rebuilt on the device from
-     those scores (mc_weights transcribed to torch); the rebuilt table must
-     equal the one the host packed, bit for bit;
+     those scores (kernels/walk_table.py mc_weights_torch); the rebuilt table
+     must equal the one the host packed, bit for bit;
   2. the walks run sharded over the world on the rebuilt table;
   3. the per-walk summaries are gathered and the consensus
      (support="read_diverse") runs on every rank;
@@ -70,34 +70,29 @@ def rebuild_walk_table(gd, edges, device):
     from a fresh device scoring of every edge.
 
     Slots that are real edges (eid >= 0) take ES2 of their edge and the weight
-    mc_weights gives it: ceil(ES) for ES > 0 (at least 1), else 0 (the torch
-    transcription of walk/engine.py mc_weights: keep the two in step). Slots
-    that are not (pads, eid -1; hierarchy hops, eid -2) keep their ORIGINAL
-    weight from the packed cum block: pads difference to 0, so the cumsum
-    carries the row total into them as pack_wide does, and hop subtree weights
-    are computed on the host and cannot be re-derived here."""
+    kernels/walk_table.py mc_weights_torch gives it. Slots that are not (pads,
+    eid -1; hierarchy hops, eid -2) keep their ORIGINAL weight from the packed
+    cum block: pads difference to 0, so the cumsum carries the row total into
+    them as pack_wide does, and hop subtree weights are computed on the host
+    and cannot be re-derived here."""
     from telomeri_tpu_torch.kernels.scoring import score_overlaps
-    from telomeri_tpu_torch.walk.engine import GraphDev
+    from telomeri_tpu_torch.kernels.walk_table import GraphDev, blocks, mc_weights_torch
 
     geom = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
             for a in edges.geom_args()]
     _, es_edges = score_overlaps(*geom, outputs=2)
-    wide, k = gd.wide, gd.h
-    eid_tab = wide[:, 2 * k:3 * k]
-    eid_ok = eid_tab >= 0
-    zero = torch.zeros((), dtype=torch.float32, device=wide.device)
+    row = blocks(gd.wide)
+    eid_ok = row.eid >= 0
+    zero = torch.zeros((), dtype=torch.float32, device=gd.wide.device)
     if es_edges.numel():
-        es_tab = torch.where(eid_ok, es_edges[eid_tab.clamp_min(0).long()], zero)
+        es_tab = torch.where(eid_ok, es_edges[row.eid.clamp_min(0).long()], zero)
     else:
-        es_tab = torch.zeros(eid_tab.shape, dtype=torch.float32, device=wide.device)
-    cum_orig = wide[:, k:2 * k]
-    w_orig = torch.diff(cum_orig, dim=1, prepend=torch.zeros_like(cum_orig[:, :1]))
-    w_new = torch.where(es_tab > 0, torch.clamp_min(torch.ceil(es_tab), 1.0), zero)
-    w = torch.where(eid_ok, w_new.to(torch.int32), w_orig)
+        es_tab = torch.zeros(row.eid.shape, dtype=torch.float32, device=gd.wide.device)
+    w_orig = torch.diff(row.cum, dim=1, prepend=torch.zeros_like(row.cum[:, :1]))
+    w = torch.where(eid_ok, mc_weights_torch(es_tab), w_orig)
     cumw = torch.cumsum(w, dim=1, dtype=torch.int32)
-    return GraphDev(wide=torch.cat([
-        wide[:, :k], cumw, wide[:, 2 * k:4 * k],
-        es_tab.contiguous().view(torch.int32), wide[:, 5 * k:]], dim=1).contiguous())
+    return GraphDev(wide=torch.cat(row._replace(
+        cum=cumw, es_bits=es_tab.contiguous().view(torch.int32)), dim=1).contiguous())
 
 
 def _fields_equal(ref, got, what: str) -> None:
@@ -138,12 +133,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     from telomeri_tpu_torch.dist.rowshard import run_walks_rowsharded
     from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts
     from telomeri_tpu_torch.pipeline import run_pipeline
-    from telomeri_tpu_torch.walk.engine import (
-        graph_to_device,
-        plan_to_device,
-        run_walks,
-        run_walks_sectioned,
-    )
+    from telomeri_tpu_torch.kernels.walk_table import graph_to_device
+    from telomeri_tpu_torch.walk.engine import plan_to_device, run_walks, run_walks_sectioned
 
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA device")

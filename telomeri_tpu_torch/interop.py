@@ -20,7 +20,8 @@ from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.graph.tensorize import GraphTensors
 from telomeri_tpu_torch.io.geometry import EdgeSoA
 from telomeri_tpu_torch.io.paf import PafRecords
-from telomeri_tpu_torch.walk.engine import GraphDev, PlanDev, WalkResult
+from telomeri_tpu_torch.kernels.walk_table import GraphDev, table_h
+from telomeri_tpu_torch.walk.engine import PlanDev, WalkResult
 from telomeri_tpu_torch.walk.plan import WalkPlan
 
 
@@ -60,10 +61,9 @@ def paf_from_reference(paf) -> PafRecords:
 
 def graph_dev_from_numpy(wide, device="cpu") -> GraphDev:
     """The reference's GraphDev.wide, (N, 6H) int32, as the port's GraphDev."""
-    wide = np.asarray(wide)
-    if wide.ndim != 2 or wide.shape[1] % 6 or wide.dtype != np.int32:
-        raise ValueError(f"expected an (N, 6H) int32 table, got {wide.shape} {wide.dtype}")
-    return GraphDev(wide=torch.from_numpy(np.array(wide)).to(device))   # a writable copy
+    wide = torch.from_numpy(np.array(wide))   # a writable copy
+    table_h(wide)
+    return GraphDev(wide=wide.to(device))
 
 
 def plan_dev_from_numpy(plan, device="cpu") -> PlanDev:

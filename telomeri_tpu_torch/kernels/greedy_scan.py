@@ -2,7 +2,7 @@
 
 The scan advances every walk of a greedy section (kind "greedy") or of a plan
 that is not sectioned (kind "mixed") through `max_steps` steps over the packed
-(N, 6H) int32 walk table (walk/engine.py GraphDev), keeping each walk's path
+(N, 6H) int32 walk table (kernels/walk_table.py), keeping each walk's path
 (visited: start, then the node of each step taken, -1 elsewhere):
 
   greedy   valid = nbr >= 0 and nbr not on the path; the first maximum slot of
@@ -35,9 +35,11 @@ from __future__ import annotations
 import torch
 
 from telomeri_tpu_torch.kernels import build
-from telomeri_tpu_torch.kernels.walk_common import (check_steps, launch_on, sum_steps,
-                                                    walk_outputs)
+from telomeri_tpu_torch.kernels.walk_common import (check_steps, launch_on, stable_bits_table,
+                                                    sum_steps, walk_outputs)
+from telomeri_tpu_torch.kernels.walk_table import blocks, table_h
 from telomeri_tpu_torch.utils.profiling import count, profiler_running, span
+from telomeri_tpu_torch.walk.plan import MODE_GREEDY_OS, MODE_MC
 
 KINDS = ("greedy", "mixed")   # csrc/greedy_scan.cu's kind argument: the index
 
@@ -55,8 +57,7 @@ def _check(wide: torch.Tensor, pd, kind: str) -> tuple[int, int]:
     """(H, W) of a scan of the plan section pd over wide, all on one device."""
     if kind not in KINDS:
         raise ValueError(f"the greedy scan runs mixed or greedy sections, got {kind!r}")
-    if wide.dim() != 2 or wide.shape[1] % 6 or wide.dtype != torch.int32:
-        raise ValueError(f"wide must be (N, 6H) int32, got {tuple(wide.shape)} {wide.dtype}")
+    h = table_h(wide)
     w = pd.start.shape[0]
     for name in ("start", "first_edge", "mode", "uid"):
         a = getattr(pd, name)
@@ -67,7 +68,7 @@ def _check(wide: torch.Tensor, pd, kind: str) -> tuple[int, int]:
     dev = wide.device
     if any(a.device != dev for a in pd):
         raise ValueError("wide and the plan must lie on one device")
-    return wide.shape[1] // 6, w
+    return h, w
 
 
 def greedy_scan_torch(wide: torch.Tensor, pd, seed, n_anchors: int, max_steps: int, kind: str,
@@ -76,13 +77,9 @@ def greedy_scan_torch(wide: torch.Tensor, pd, seed, n_anchors: int, max_steps: i
     in-scan visited table, as a Python loop over steps. fetch(cur) -> (W, 6H)
     rows, as in kernels/walk_scan.py walk_scan_torch; the default is the local
     gather."""
-    # engine imports this module, and walk.plan reaches it through io.geometry
-    from telomeri_tpu_torch.walk.engine import stable_bits_table
-    from telomeri_tpu_torch.walk.plan import MODE_GREEDY_OS, MODE_MC
-
     if kind not in KINDS:
         raise ValueError(f"_kind_core runs mixed or greedy sections, got {kind!r}")
-    k = wide.shape[1] // 6
+    k = table_h(wide)
     if fetch is None:
         fetch = lambda cur: wide[cur.long()]
     w = pd.start.shape[0]
@@ -104,21 +101,20 @@ def greedy_scan_torch(wide: torch.Tensor, pd, seed, n_anchors: int, max_steps: i
     took, eid_t, adv_t, es_t = [], [], [], []
 
     for s in range(max_steps):
-        rows = fetch(cur)                            # (W, 6H) one row fetch
-        nbr_rows = rows[:, :k]
+        row = blocks(fetch(cur))                     # (W, 6H) one row fetch
+        nbr_rows = row.nbr
         # greedy candidates exclude pads and already-visited destinations
         revisit = (nbr_rows[:, :, None] == visited[:, None, :]).any(-1)
         valid = (nbr_rows >= 0) & ~revisit
-        osb = rows[:, 5 * k:6 * k].contiguous().view(torch.float32)
+        osb = row.os_bits.contiguous().view(torch.float32)
         gkey = torch.where(is_os[:, None], osb, ramp)
         masked = torch.where(valid, gkey, float("-inf"))
         choice = torch.argmax(masked, dim=1).to(torch.int32)   # first max slot
         dead = ~valid.any(dim=1)
         if use_mc:
-            cum = rows[:, k:2 * k]
-            total = cum[:, -1]
+            total = row.cum[:, -1]
             r = torch.remainder(bits[s] & 0x7FFFFFFF, torch.clamp_min(total, 1))
-            mc_choice = torch.clamp_max((cum <= r[:, None]).sum(1), k - 1).to(torch.int32)
+            mc_choice = torch.clamp_max((row.cum <= r[:, None]).sum(1), k - 1).to(torch.int32)
             choice = torch.where(is_mc, mc_choice, choice)
             dead = torch.where(is_mc, total <= 0, dead)
         # deterministic first-edge enumeration (MC plans always have -1)
@@ -139,9 +135,9 @@ def greedy_scan_torch(wide: torch.Tensor, pd, seed, n_anchors: int, max_steps: i
         nsteps = nsteps + stepping.to(torch.int32)
         visited[:, s + 1] = torch.where(stepping, nxt, -1)
         took.append(stepping)
-        eid_t.append(_pick(rows[:, 2 * k:3 * k], choice))
-        adv_t.append(_pick(rows[:, 3 * k:4 * k], choice))
-        es_t.append(_pick(rows[:, 4 * k:5 * k], choice))
+        eid_t.append(_pick(row.eid, choice))
+        adv_t.append(_pick(row.adv, choice))
+        es_t.append(_pick(row.es_bits, choice))
 
     took_ws = torch.stack(took, dim=1)
     es = torch.stack(es_t, dim=1).view(torch.float32)

@@ -1,7 +1,7 @@
 """All-Monte-Carlo walk scan: the port of telomeri_tpu/kernels/walk_vmem.py::_walk_kernel.
 
 The scan advances every walk of an all-MC plan section through `max_steps`
-steps over the packed (N, 6H) int32 walk table (walk/engine.py GraphDev) and
+steps over the packed (N, 6H) int32 walk table (kernels/walk_table.py) and
 streams out five per-step records, each (W, S) int32:
 
   nxt    neighbour id at the sampled slot (-1 at a pad slot)
@@ -15,7 +15,7 @@ min(#{j : cum[j] <= r}, H-1), and the walk moves to nxt when nxt >= 0. It is
 historyless (MC draws never consult the path); walk/engine.py resolve_mc_events
 finds each walk's first event from the records afterwards. `bits` of step s of
 walk `uid` is word s % 2 of Threefry-2x32 block s // 2 under the key
-fold_in(key(seed), uid) (walk/engine.py stable_bits_table).
+fold_in(key(seed), uid) (kernels/walk_common.py stable_bits_table).
 
   - walk_scan_torch  plain torch version over a given (S, W) bits table (the
                      lax.scan of the reference's _mc_fast_core, one row fetch
@@ -26,18 +26,13 @@ fold_in(key(seed), uid) (walk/engine.py stable_bits_table).
                      `wide` and the pick from the pick plane
   - walk_scan        (wide, start, uid, seed, S, picks=None): dispatch on the
                      tensors' device
-  - pick_plane       the pick plane of a table: (N, H, 4) int32, entry [v, j]
-                     = {nbr, eid, adv, es_bits} of slot j of node v, pads
-                     included, so the four words a step picks are one 16-byte
-                     sector instead of four sectors in four blocks of the row
 
 Records come back as one (5, W, S) int32 tensor in the order above.
 
-The plane is derived from `wide` and holds 4/6 of its bytes (N x H x 16 B).
-walk/engine.py GraphDev builds it once, on the first CUDA MC scan over its
-table, and hands it to every later scan; the kernel wrapper builds one for the
-call where none is passed. The plain version reads `wide` alone and never
-builds one.
+The kernel picks from the table's pick plane (kernels/walk_table.py
+pick_plane), which GraphDev builds once and hands to every later scan; the
+kernel wrapper builds one for the call where none is passed. The plain version
+reads `wide` alone and never builds one.
 """
 
 from __future__ import annotations
@@ -45,6 +40,9 @@ from __future__ import annotations
 import torch
 
 from telomeri_tpu_torch.kernels import build
+from telomeri_tpu_torch.kernels.walk_common import stable_bits_table
+from telomeri_tpu_torch.kernels.walk_table import (PICKED_BLOCKS, blocks, pick_plane,
+                                                   plane_shape, table_h)
 from telomeri_tpu_torch.utils.profiling import count, profiler_running, span
 
 
@@ -52,8 +50,7 @@ def _check(wide: torch.Tensor, start: torch.Tensor, per_walk: torch.Tensor, name
            shape: tuple) -> tuple[int, int]:
     """(H, W) of a scan over `wide` from `start`, with the draw input `per_walk`
     (the bits table or the uids) of the given shape, all int32 on one device."""
-    if wide.dim() != 2 or wide.shape[1] % 6 or wide.dtype != torch.int32:
-        raise ValueError(f"wide must be (N, 6H) int32, got {tuple(wide.shape)} {wide.dtype}")
+    h = table_h(wide)
     if start.dim() != 1 or start.dtype != torch.int32:
         raise ValueError("start must be (W,) int32")
     if tuple(per_walk.shape) != shape or per_walk.dtype != torch.int32:
@@ -61,36 +58,13 @@ def _check(wide: torch.Tensor, start: torch.Tensor, per_walk: torch.Tensor, name
                          f"{tuple(per_walk.shape)} {per_walk.dtype}")
     if not (wide.device == start.device == per_walk.device):
         raise ValueError(f"wide, start and {name} must lie on one device")
-    return wide.shape[1] // 6, start.shape[0]
-
-
-# the blocks of the wide row a step picks from, in the plane's order: nbr, eid,
-# adv, es_bits (block 1 is cum, block 5 os_bits)
-PICKED_BLOCKS = (0, 2, 3, 4)
-count("walk.pick_plane_builds", 0)
-count("bytes.pick_plane", 0)
-
-
-def pick_plane(wide: torch.Tensor) -> torch.Tensor:
-    """(N, H, 4) int32 pick plane of the (N, 6H) table on its device: slot j
-    of node v's nbr, eid, adv and es_bits side by side, pads included. One
-    plain copy (torch.stack of four strided views, no intermediate), in the
-    span walk.pick_plane; counts walk.pick_plane_builds and bytes.pick_plane."""
-    if wide.dim() != 2 or wide.shape[1] % 6 or wide.dtype != torch.int32:
-        raise ValueError(f"wide must be (N, 6H) int32, got {tuple(wide.shape)} {wide.dtype}")
-    n, h = wide.shape[0], wide.shape[1] // 6
-    blocks = wide.unflatten(1, (6, h))
-    with span("walk.pick_plane", N=n, H=h):
-        plane = torch.stack([blocks[:, b] for b in PICKED_BLOCKS], dim=2)
-    count("walk.pick_plane_builds")
-    count("bytes.pick_plane", plane.nbytes)
-    return plane
+    return h, start.shape[0]
 
 
 def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
                     max_steps: int, fetch=None) -> torch.Tensor:
     """Plain torch version on any device. bits: (S, W) int32 holding the uint32
-    draw bit patterns (walk/engine.py stable_bits_table).
+    draw bit patterns (kernels/walk_common.py stable_bits_table).
 
     fetch(cur) -> (W, 6H) rows of the walks' current nodes; the default is the
     local gather wide[cur]. dist/rowshard.py passes a collective fetch, with
@@ -99,20 +73,14 @@ def walk_scan_torch(wide: torch.Tensor, start: torch.Tensor, bits: torch.Tensor,
     if fetch is None:
         fetch = lambda cur: wide[cur.long()]
     out = torch.empty((5, w, max_steps), dtype=torch.int32, device=wide.device)
-    # column of the chosen slot in each picked block: nbr, eid, adv, es_bits
-    blocks = torch.tensor(PICKED_BLOCKS, dtype=torch.int64, device=wide.device) * h
     cur = start.clone()
     for s in range(max_steps):
-        rows = fetch(cur)                             # (W, 6H) one row fetch
-        cum = rows[:, h:2 * h]
-        total = cum[:, -1]
+        row = blocks(fetch(cur))                      # (W, 6H) one row fetch
+        total = row.cum[:, -1]
         r = torch.remainder(bits[s] & 0x7FFFFFFF, torch.clamp_min(total, 1))
-        choice = torch.clamp_max((cum <= r[:, None]).sum(1), h - 1)
-        picked = rows.gather(1, choice[:, None] + blocks[None, :])   # (W, 4)
-        nxt = picked[:, 0]
-        out[0, :, s] = nxt
-        out[1, :, s] = total
-        out[2:, :, s] = picked[:, 1:].T
+        choice = torch.clamp_max((row.cum <= r[:, None]).sum(1), h - 1)[:, None]
+        nxt, eid, adv, es = (row[b].gather(1, choice)[:, 0] for b in PICKED_BLOCKS)
+        out[:, :, s] = torch.stack([nxt, total, eid, adv, es])
         cur = torch.where(nxt >= 0, nxt, cur)
     return out
 
@@ -138,9 +106,9 @@ def _walk_scan_cuda(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, 
         raise ValueError(f"the kernel needs H % 64 == 0, got H={h}")
     if picks is None:
         picks = pick_plane(wide)
-    elif (tuple(picks.shape) != (wide.shape[0], h, 4) or picks.dtype != torch.int32
+    elif (tuple(picks.shape) != plane_shape(wide.shape[0], h) or picks.dtype != torch.int32
           or picks.device != wide.device):
-        raise ValueError(f"picks must be ({wide.shape[0]}, {h}, 4) int32 on {wide.device}, "
+        raise ValueError(f"picks must be {plane_shape(wide.shape[0], h)} int32 on {wide.device}, "
                          f"got {tuple(picks.shape)} {picks.dtype} on {picks.device}")
     wide, picks, start, uid = (t.contiguous() for t in (wide, picks, start, uid))
     lib = build.load()
@@ -166,8 +134,6 @@ def walk_scan(wide: torch.Tensor, start: torch.Tensor, uid: torch.Tensor, seed: 
     rather than fall back."""
     kind = wide.device.type
     if kind == "cpu":
-        from telomeri_tpu_torch.walk.engine import stable_bits_table   # engine imports this module
-
         _check(wide, start, uid, "uid", tuple(start.shape))
         return walk_scan_torch(wide, start, stable_bits_table(seed, uid, max_steps), max_steps)
     if kind == "cuda":

@@ -63,7 +63,8 @@ from telomeri_tpu_torch.io.geometry import build_edges, rescore_edges_device
 from telomeri_tpu_torch.utils.profiling import (count_copy, counters, counters_since,
                                                 maybe_trace, span)
 from telomeri_tpu_torch.walk import engine
-from telomeri_tpu_torch.walk.engine import WalkResult, graph_to_device, run_walks_host
+from telomeri_tpu_torch.kernels import walk_table
+from telomeri_tpu_torch.walk.engine import WalkResult, run_walks_host
 from telomeri_tpu_torch.walk.rescue import free_walkable_ends, run_rescue_round
 
 # "auto" device scoring engages at this many edges on a CUDA device. This is the
@@ -173,7 +174,7 @@ def _device_memory_limit(device: torch.device) -> int | None:
 def _resolve_placement(cfg: ScaffoldConfig, graph: GraphTensors, mesh: WalkMesh | None,
                        metrics: Metrics) -> ScaffoldConfig:
     """graph_placement="auto": replicated unless the walk stage's tables on
-    one device (engine.device_walk_bytes: the packed table, and on a card the
+    one device (walk_table.device_walk_bytes: the packed table, and on a card the
     MC kernel's pick plane each replicated rank builds beside it) exceed ~75%
     of its memory (16 GiB where torch knows no limit) and the mesh has more
     than one device; then row-sharded (dist/rowshard.py), which builds no
@@ -182,7 +183,7 @@ def _resolve_placement(cfg: ScaffoldConfig, graph: GraphTensors, mesh: WalkMesh 
         return cfg
     placement = "replicated"
     if mesh is not None and mesh.size > 1:
-        need = engine.device_walk_bytes(graph, mesh.device)
+        need = walk_table.device_walk_bytes(graph, mesh.device)
         limit = _device_memory_limit(mesh.device)
         budget = 0.75 * (limit if limit else 16 * 2**30)
         if need > budget:
@@ -392,7 +393,7 @@ def _run(contigs_path, reads_path, paf_rc_path, paf_rr_path, out_path, cfg: Scaf
             if not free_walkable_ends(graph, accepted, blocked_ends):
                 break
             if rescue_gd is None and resolved_placement != "rowshard":
-                rescue_gd = graph_to_device(graph, device)
+                rescue_gd = walk_table.graph_to_device(graph, device)
             with metrics.stage(f"rescue_round_{ri}"), \
                     _watch(metrics, f"rescue_walks:R{ri}", device), span("rescue.round", index=ri):
                 new, paths_ri, blocked_ends = run_rescue_round(

@@ -7,15 +7,11 @@ w_j / total over the full row by integer inverse-CDF against the static row
 cumsum, and die on a revisit (cycle kill); a walk succeeds on stepping onto
 another anchor node (id < 2 * n_anchors).
 
-Device layout: GraphDev.wide is the reference's packed (N, 6H) int32 table
-[nbr | cum | eid | adv | es_bits | os_bits]. On a card the MC scan also reads
-GraphDev.picks, the (N, H, 4) int32 pick plane derived from it (slot j's nbr,
-eid, adv and es_bits side by side: one 16-byte sector a step instead of four
-sectors in four blocks), built once per table on the first CUDA MC scan; CPU
-tables and the row-sharded placement never build it. The walk stage on one
-device is one launch per part, as the reference's is one program
-(_run_walks_multi): the MC section runs the historyless scan (kernels/walk_scan.py), then
-resolve_mc_events finds each walk's first event from the per-step records
+The walk table, GraphDev and its upload are kernels/walk_table.py's, which
+owns the table's format. The walk stage on one device is one launch per part,
+as the reference's is one program (_run_walks_multi): the MC section runs the
+historyless scan (kernels/walk_scan.py, on a card over the table's pick plane),
+then resolve_mc_events finds each walk's first event from the per-step records
 (kernels/walk_events.py); greedy and mixed sections run _kind_core, the scan
 with the in-scan visited table (kernels/greedy_scan.py). Each part is a
 hand-written CUDA kernel on CUDA tensors and its plain torch version on CPU
@@ -23,25 +19,15 @@ tensors; the row-sharded placement (dist/rowshard.py) runs the plain scans with
 its collective row fetch on any device.
 
 RNG: step s of walk `uid` draws lane s % 2 of Threefry-2x32 block s // 2 on the
-key fold_in(key(seed), uid), exactly as jax.random does. On a card the MC and
-mixed sections' kernels compute the draw in registers (csrc/walk_common.cuh);
-stable_bits_table is the same stream as a (S, W) table in torch, for CPU
-tensors, the row-sharded scans and the oracle. Its uint32 arithmetic runs on
-int64 tensors masked to 32 bits; torch.Generator is not used, because it does
-not produce this stream.
+key fold_in(key(seed), uid), exactly as jax.random does (kernels/walk_common.py
+stable_bits_table, re-exported here).
 
 Dtypes follow the reference with JAX x64 off: node ids, uids, records and
 sentinels are int32, score_sum is float32. score_sum is summed over steps in
 float32 in the order XLA's CPU backend (jax 0.9.0) uses for the reference's
-(W, S) row reduce, on every device, so the sums are bit-equal to it (the
-consensus rule 5 tie-break compares them exactly). That order is XLA's tree
-reduction rewrite with a window of 32: up to 32 steps, one sequential sum from
-0.0; above 32, the steps are padded with zeros to a multiple of 32, pad // 2
-zeros in front and the rest behind, each window of 32 is summed sequentially
-from 0.0, and the window sums are reduced by the same rule
-(kernels/walk_common.py sum_steps, here _sum_steps; the walk kernels' StepSum). So
-S = 48 sums steps [0, 24) and [24, 48) and adds the two; S = 96 sums three
-windows of 32 left to right.
+(W, S) row reduce, on every device (kernels/walk_common.py sum_steps; the walk
+kernels' StepSum), so the sums are bit-equal to it: the consensus rule 5
+tie-break compares them exactly.
 """
 
 from __future__ import annotations
@@ -55,45 +41,12 @@ from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.graph.tensorize import GraphTensors
 from telomeri_tpu_torch.walk.plan import WalkPlan
 from telomeri_tpu_torch.kernels.greedy_scan import greedy_scan, greedy_scan_torch
-from telomeri_tpu_torch.kernels.walk_common import (  # noqa: F401  (the order above)
-    sum_steps as _sum_steps,
-)
+from telomeri_tpu_torch.kernels.walk_common import stable_bits_table  # noqa: F401  (re-exported)
 from telomeri_tpu_torch.kernels.walk_events import resolve_events
-from telomeri_tpu_torch.kernels.walk_scan import pick_plane, walk_scan
+from telomeri_tpu_torch.kernels.walk_scan import walk_scan
+from telomeri_tpu_torch.kernels.walk_table import GraphDev, graph_to_device
+from telomeri_tpu_torch.kernels.walk_table import mc_weights  # noqa: F401  (re-exported)
 from telomeri_tpu_torch.utils.profiling import count, count_copy, profiler_running, span
-
-_M32 = 0xFFFFFFFF
-
-
-class GraphDev:
-    """Device-resident packed walk table (see the reference's GraphDev).
-
-    wide: (N, 6H) int32, column blocks [nbr | cum | eid | adv | es_bits | os_bits].
-    picks: the MC kernel's pick plane, (N, H, 4) int32 (kernels/walk_scan.py
-    pick_plane), derived from `wide` on its first read and kept for the
-    table's life. So `wide` is read-only (a new table is a new GraphDev) and
-    is not to be edited in place after construction: the plane would no
-    longer match it."""
-
-    __slots__ = ("_wide", "_picks")
-
-    def __init__(self, wide: torch.Tensor):
-        self._wide = wide
-        self._picks: torch.Tensor | None = None
-
-    @property
-    def wide(self) -> torch.Tensor:
-        return self._wide
-
-    @property
-    def h(self) -> int:
-        return self.wide.shape[1] // 6
-
-    @property
-    def picks(self) -> torch.Tensor:
-        if self._picks is None:
-            self._picks = pick_plane(self.wide)
-        return self._picks
 
 
 class PlanDev(NamedTuple):
@@ -126,118 +79,6 @@ class WalkResult(NamedTuple):
 
     def to(self, device) -> "WalkResult":
         return WalkResult(*[torch.as_tensor(a).to(device) for a in self])
-
-
-# --- Threefry-2x32 draw table --------------------------------------------------
-
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
-    """Threefry-2x32, 20 rounds, as jax.random's threefry_2x32: key (k0, k1),
-    counters (x0, x1). uint32 values in int64 tensors (or ints) that broadcast;
-    every sum is masked back to 32 bits, so nothing overflows int64."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in rotations[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x0, x1
-
-
-def stable_bits_table(seed: int, uid: torch.Tensor, max_steps: int) -> torch.Tensor:
-    """(S, W) int32 table of per-step MC draw bits (uint32 bit patterns).
-
-    The port of the reference's _stable_bits_table: key(seed) is (0, seed) as in
-    jax.random with x64 off (the seed is an int32), fold_in(key, uid) hashes the
-    counter pair (0, uid), and block b hashes the FIXED counters (2b, 2b+1), so
-    step s = lane s % 2 of block s // 2 and the stream is a stable prefix in
-    max_steps."""
-    n_blocks = (max_steps + 1) // 2
-    dev = uid.device
-    k0, k1 = threefry2x32(0, int(seed) & _M32, 0, uid.to(torch.int64) & _M32)
-    b = torch.arange(n_blocks, dtype=torch.int64, device=dev)[None, :]
-    y0, y1 = threefry2x32(k0[:, None], k1[:, None], 2 * b, 2 * b + 1)   # (W, B)
-    bits = torch.stack([y0, y1], dim=2).reshape(uid.shape[0], 2 * n_blocks)
-    bits = bits[:, :max_steps].T                                        # (S, W)
-    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).contiguous()
-
-
-# --- host-side table packing (numpy copies of the reference's helpers) ---------
-
-def mc_weights(es: np.ndarray) -> np.ndarray:
-    """Integer MC sampling weights: ceil(ES) for ES > 0 (at least 1), else 0."""
-    es = np.asarray(es, np.float32)
-    return np.where(es > 0, np.maximum(np.ceil(es), 1), 0).astype(np.int32)
-
-
-def _cum_arrays(g: GraphTensors) -> np.ndarray:
-    if g.cumw is not None:
-        return g.cumw
-    return np.cumsum(mc_weights(g.es), axis=1, dtype=np.int64).astype(np.int32)
-
-
-def lane_width(k: int) -> int:
-    """Padded CSR half-width H: the smallest of 64, 128, 256, ... >= k."""
-    h = 64
-    while h < k:
-        h *= 2
-    return h
-
-
-def _pad_cols(a: np.ndarray, h: int, fill) -> np.ndarray:
-    if a.shape[1] == h:
-        return a
-    pad = np.broadcast_to(fill, (a.shape[0], h - a.shape[1])).astype(a.dtype)
-    return np.concatenate([a, pad], axis=1)
-
-
-def pack_wide(nbr, cumw, eid, adv, es, os_, h: int) -> np.ndarray:
-    """Pack the (N, K) CSR tables into the (N, 6H) wide row. cum pads carry the
-    row total, so the compare-count never lands on them."""
-    cum_pad = _pad_cols(cumw, h, 0)
-    if h != cumw.shape[1]:
-        cum_pad = cum_pad.copy()
-        cum_pad[:, cumw.shape[1]:] = cumw[:, -1:] if cumw.shape[1] else 0
-    return np.concatenate([
-        _pad_cols(nbr, h, -1).astype(np.int32),
-        cum_pad.astype(np.int32),
-        _pad_cols(eid, h, -1).astype(np.int32),
-        _pad_cols(adv, h, 0).astype(np.int32),
-        _pad_cols(es, h, 0.0).astype(np.float32).view(np.int32),
-        _pad_cols(os_, h, 0.0).astype(np.float32).view(np.int32),
-    ], axis=1)
-
-
-def device_table_bytes(g: GraphTensors) -> int:
-    """Device footprint of the packed walk table (N * 6H int32)."""
-    return g.nbr.shape[0] * 6 * lane_width(g.nbr.shape[1]) * 4
-
-
-def device_walk_bytes(g: GraphTensors, device) -> int:
-    """Device footprint of the walk stage's tables on `device`: the packed
-    table, and on a card also the MC kernel's pick plane (N * H * 4 int32,
-    2/3 of the table), which GraphDev.picks builds beside it."""
-    need = device_table_bytes(g)
-    if torch.device(device).type == "cuda":
-        need += need * 4 // 6
-    return need
-
-
-def graph_to_device(g: GraphTensors, device) -> GraphDev:
-    h = lane_width(g.nbr.shape[1])
-    with span("walk.pack", N=g.nbr.shape[0], H=h):
-        wide = pack_wide(g.nbr, _cum_arrays(g), g.eid, g.adv, g.es, g.os_, h)
-    with span("walk.upload", N=g.nbr.shape[0], H=h):
-        gd = GraphDev(wide=torch.from_numpy(wide).to(device))
-    count_copy([gd.wide], "cpu", device)
-    return gd
 
 
 def plan_to_device(p: WalkPlan, device) -> PlanDev:

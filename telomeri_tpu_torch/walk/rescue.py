@@ -27,8 +27,8 @@ from telomeri_tpu_torch.dist.mesh import (
     gathered_consensus,
     run_walk_shards,
 )
-from telomeri_tpu_torch.walk.engine import (GraphDev, count_steps_taken, graph_to_device,
-                                            run_walks_sectioned)
+from telomeri_tpu_torch.kernels.walk_table import GraphDev, graph_to_device
+from telomeri_tpu_torch.walk.engine import count_steps_taken, run_walks_sectioned
 
 RESCUE_UID_BASE = 1 << 30   # rescue uids never collide with base plan uids
 MAX_RESCUE_WALKS = 1 << 20  # hard batch cap: many free ends -> fewer walks/end

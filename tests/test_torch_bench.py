@@ -172,7 +172,7 @@ def test_synthetic_table_equals_the_reference_sweep_generator():
 
 def test_synthetic_table_narrower_than_its_lane_width():
     """K below the lane width: the slots past K are pack_wide's pads."""
-    from telomeri_tpu_torch.walk.engine import pack_wide
+    from telomeri_tpu_torch.kernels.walk_table import pack_wide
 
     n, k = 4200, 40
     wide = bench.synthetic_table(np.random.default_rng(3), n, k=k)

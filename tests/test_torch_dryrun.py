@@ -17,7 +17,7 @@ import torch
 
 from telomeri_tpu_torch import dryrun
 from telomeri_tpu_torch.config import ScaffoldConfig
-from telomeri_tpu_torch.walk.engine import graph_to_device, mc_weights
+from telomeri_tpu_torch.kernels.walk_table import graph_to_device, mc_weights
 from test_torch_dist import INPUTS, LAUNCHER_ENV, ROOT
 
 LINE = re.compile(

@@ -13,6 +13,7 @@ from telomeri_tpu.config import ScaffoldConfig
 from telomeri_tpu.walk import oracle as ref_oracle
 from telomeri_tpu.walk.plan import MODE_GREEDY_ES, MODE_GREEDY_OS, MODE_MC, plan_walks
 from telomeri_tpu_torch import interop
+from telomeri_tpu_torch.kernels import walk_table
 from telomeri_tpu_torch.walk import engine
 from telomeri_tpu_torch.walk.oracle import (
     OracleWalk,
@@ -46,7 +47,7 @@ def test_engine_matches_torch_oracle(rng, mode):
     sel = np.flatnonzero(plan.active & (plan.mode == mode))[:40]
     assert len(sel)
     g_port = interop.graph_from_reference(g)
-    r = engine.run_walks(engine.graph_to_device(g_port, "cpu"),
+    r = engine.run_walks(walk_table.graph_to_device(g_port, "cpu"),
                          engine.plan_to_device(interop.plan_from_reference(plan), "cpu"),
                          11, n_anchors=g.n_anchors, max_steps=10).to_numpy()
     choice = torch_choice_fn(11, 10)

@@ -1,4 +1,4 @@
-"""The MC walk scan's pick plane (kernels/walk_scan.py pick_plane, walk/engine.py
+"""The MC walk scan's pick plane (kernels/walk_table.py pick_plane and
 GraphDev.picks): the (N, H, 4) int32 plane of {nbr, eid, adv, es_bits} a slot,
 read by the CUDA kernel for its pick, against the wide table it is built from.
 
@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from telomeri_tpu_torch.kernels import walk_scan
+from telomeri_tpu_torch.kernels import walk_scan, walk_table
+from telomeri_tpu_torch.kernels.walk_common import stable_bits_table
 from telomeri_tpu_torch.utils.profiling import counters
 from telomeri_tpu_torch.walk import engine
 
@@ -43,35 +44,35 @@ def csr_tables(rng, n: int, k: int):
 
 def packed(rng, n: int, k: int) -> tuple[np.ndarray, tuple]:
     tables = csr_tables(rng, n, k)
-    return engine.pack_wide(*tables, engine.lane_width(k)), tables
+    return walk_table.pack_wide(*tables, walk_table.lane_width(k)), tables
 
 
 @pytest.mark.parametrize("k", [48, 100, 200])   # H = 64, 128, 256
 def test_pick_plane_is_the_four_picked_blocks_slot_by_slot(k):
     rng = np.random.default_rng(k)
     wide, (nbr, _, eid, adv, es, _) = packed(rng, 300, k)
-    h = engine.lane_width(k)
-    plane = walk_scan.pick_plane(torch.from_numpy(wide)).numpy()
+    h = walk_table.lane_width(k)
+    plane = walk_table.pick_plane(torch.from_numpy(wide)).numpy()
     assert plane.shape == (300, h, 4) and plane.dtype == np.int32
     es_bits = es.astype(np.float32).view(np.int32)
     for word, table, pad in ((0, nbr, -1), (1, eid, -1), (2, adv, 0), (3, es_bits, 0)):
         np.testing.assert_array_equal(plane[:, :k, word], table.astype(np.int32))
         assert (plane[:, k:, word] == pad).all(), word
     # and against the wide row itself: word i of slot j is column j of block 0, 2, 3, 4
-    for word, block in enumerate(walk_scan.PICKED_BLOCKS):
+    for word, block in enumerate(walk_table.PICKED_BLOCKS):
         np.testing.assert_array_equal(plane[:, :, word], wide[:, block * h:(block + 1) * h])
 
 
 def test_pick_plane_rejects_what_is_no_wide_table():
     with pytest.raises(ValueError, match="6H"):
-        walk_scan.pick_plane(torch.zeros((4, 100), dtype=torch.int32))
+        walk_table.pick_plane(torch.zeros((4, 100), dtype=torch.int32))
     with pytest.raises(ValueError, match="6H"):
-        walk_scan.pick_plane(torch.zeros((4, 384), dtype=torch.int64))
+        walk_table.pick_plane(torch.zeros((4, 384), dtype=torch.int64))
 
 
 def test_graph_dev_builds_its_plane_once():
     rng = np.random.default_rng(3)
-    gd = engine.GraphDev(wide=torch.from_numpy(packed(rng, 200, 64)[0]))
+    gd = walk_table.GraphDev(wide=torch.from_numpy(packed(rng, 200, 64)[0]))
     before_builds, before_bytes = builds(), counters().get("bytes.pick_plane", 0)
     planes = [gd.picks for _ in range(4)]
     assert builds() - before_builds == 1
@@ -80,11 +81,31 @@ def test_graph_dev_builds_its_plane_once():
     assert gd.h == 64 and gd.wide.shape == (200, 6 * 64)
 
 
+@pytest.mark.parametrize("k", [48, 100, 200])   # H = 64, 128, 256
+def test_device_walk_bytes_are_the_bytes_the_table_and_its_plane_hold(k):
+    """The placement's count (device_walk_bytes) is what graph_to_device and
+    GraphDev.picks allocate: the table alone where no plane is built (a CPU),
+    the table and its plane on a card."""
+    from telomeri_tpu_torch.graph.tensorize import GraphTensors
+
+    rng = np.random.default_rng(k + 1)
+    n = 90
+    nbr, cum, eid, adv, es, os_ = csr_tables(rng, n, k)
+    g = GraphTensors(nbr=nbr.astype(np.int32), es=es.astype(np.float32),
+                     os_=os_.astype(np.float32), adv=adv.astype(np.int32),
+                     eid=eid.astype(np.int32), deg=(nbr >= 0).sum(1).astype(np.int32),
+                     seq_len=np.full(n // 2, 5000, np.int32), n_anchors=4, cumw=cum)
+    gd = walk_table.graph_to_device(g, "cpu")
+    assert gd.h == walk_table.lane_width(k)
+    assert walk_table.device_walk_bytes(g, "cpu") == gd.wide.nbytes
+    assert walk_table.device_walk_bytes(g, "cuda") == gd.wide.nbytes + gd.picks.nbytes
+
+
 def test_graph_dev_table_is_read_only():
     """A new table is a new GraphDev: rebinding `wide` would leave the cached
     plane describing the old one."""
     rng = np.random.default_rng(5)
-    gd = engine.GraphDev(wide=torch.from_numpy(packed(rng, 50, 64)[0]))
+    gd = walk_table.GraphDev(wide=torch.from_numpy(packed(rng, 50, 64)[0]))
     plane = gd.picks
     with pytest.raises(AttributeError):
         gd.wide = torch.zeros_like(gd.wide)
@@ -95,7 +116,7 @@ def test_cpu_scans_build_no_plane():
     """A CPU table runs the plain scan from `wide` alone, through walk_scan and
     the engine's MC section, and its GraphDev never builds a plane."""
     rng = np.random.default_rng(4)
-    gd = engine.GraphDev(wide=torch.from_numpy(packed(rng, 200, 64)[0]))
+    gd = walk_table.GraphDev(wide=torch.from_numpy(packed(rng, 200, 64)[0]))
     w = 64
     pd = engine.PlanDev(start=torch.from_numpy(rng.integers(0, 200, w).astype(np.int32)),
                         first_edge=torch.full((w,), -1, dtype=torch.int32),
@@ -167,9 +188,9 @@ def test_plain_scan_records_equal_the_kernels_reads_from_the_plane(k, s):
     w = 300
     start = rng.integers(0, 400, w).astype(np.int32)
     uid = torch.from_numpy(rng.integers(-2**31, 2**31, w).astype(np.int32))
-    bits = engine.stable_bits_table(-77, uid, s)
+    bits = stable_bits_table(-77, uid, s)
     got = walk_scan.walk_scan_torch(torch.from_numpy(wide), torch.from_numpy(start), bits, s)
-    plane = walk_scan.pick_plane(torch.from_numpy(wide)).numpy()
+    plane = walk_table.pick_plane(torch.from_numpy(wide)).numpy()
     np.testing.assert_array_equal(got.numpy(), scan_from_plane(wide, plane, start,
                                                                bits.numpy(), s))
 
@@ -194,11 +215,11 @@ def test_kernel_with_plane_equals_plain_scan(k, s, given):
     start = torch.from_numpy(rng.integers(0, n, w).astype(np.int32)).to(dev)
     uid = torch.from_numpy(rng.integers(-2**31, 2**31, w).astype(np.int32)).to(dev)
     seed = int(rng.integers(0, 2**31))
-    picks = walk_scan.pick_plane(wide) if given else None
+    picks = walk_table.pick_plane(wide) if given else None
     before = builds()
     got = walk_scan.walk_scan_cuda(wide, start, uid, seed, s, picks=picks)
     assert builds() - before == (0 if given else 1)
-    want = walk_scan.walk_scan_torch(wide, start, engine.stable_bits_table(seed, uid, s), s)
+    want = walk_scan.walk_scan_torch(wide, start, stable_bits_table(seed, uid, s), s)
     torch.cuda.synchronize()
     assert torch.equal(want, got)
     assert (got[0] < 0).any() and (got[1] <= 0).any()   # pads and dead rows were picked
@@ -232,10 +253,10 @@ def test_kernel_reads_plane_offsets_past_2_to_the_31_words():
     del weight, slot
     start = rand(top, n, (w,))
     uid = torch.arange(w, dtype=torch.int32, device=dev)
-    picks = walk_scan.pick_plane(wide)
+    picks = walk_table.pick_plane(wide)
     assert picks.numel() > 2**31
     got = walk_scan.walk_scan_cuda(wide, start, uid, 21, s, picks=picks)
-    want = walk_scan.walk_scan_torch(wide, start, engine.stable_bits_table(21, uid, s), s)
+    want = walk_scan.walk_scan_torch(wide, start, stable_bits_table(21, uid, s), s)
     torch.cuda.synchronize()
     assert torch.equal(want, got)
     assert (got[0] >= top).float().mean() > 0.4   # about half the steps land past `top`

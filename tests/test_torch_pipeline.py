@@ -236,7 +236,8 @@ def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from telomeri_tpu_torch.kernels import scoring, walk_scan
-    from telomeri_tpu_torch.walk.engine import pack_wide, stable_bits_table
+    from telomeri_tpu_torch.kernels.walk_common import stable_bits_table
+    from telomeri_tpu_torch.kernels.walk_table import pack_wide
 
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from telomeri_tpu.walk.engine import _stable_bits_table
-from telomeri_tpu_torch.walk.engine import stable_bits_table
+from telomeri_tpu_torch.kernels.walk_common import stable_bits_table
 
 
 def _uids(rng, n=64):

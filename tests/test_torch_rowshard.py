@@ -32,6 +32,7 @@ from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.consensus.grouping import compress
 from telomeri_tpu_torch.dist.mesh import WalkMesh
 from telomeri_tpu_torch.dist.rowshard import run_walks_rowsharded, shard_graph_rows
+from telomeri_tpu_torch.kernels import walk_table
 from telomeri_tpu_torch.walk import engine
 from telomeri_tpu_torch.walk.plan import plan_walks
 
@@ -158,7 +159,7 @@ def test_row_padding_dead_rows(toy_graph, size):
     assert len({s.shape for s in shards}) == 1
     table = np.concatenate(shards)
     assert table.shape[0] == n + (-n % size)
-    np.testing.assert_array_equal(table[:n], engine.graph_to_device(toy_graph, CPU).wide.numpy())
+    np.testing.assert_array_equal(table[:n], walk_table.graph_to_device(toy_graph, CPU).wide.numpy())
     h = table.shape[1] // 6
     pad = table[n:]
     assert (pad[:, :h] == -1).all() and (pad[:, 2 * h:3 * h] == -1).all()   # nbr, eid
@@ -190,10 +191,10 @@ def test_auto_placement_counts_the_pick_plane_on_a_card(toy_graph, monkeypatch):
     which builds no plane."""
     from telomeri_tpu_torch.utils.logging import Metrics
 
-    table = engine.device_table_bytes(toy_graph)
-    n, h = toy_graph.nbr.shape[0], engine.lane_width(toy_graph.nbr.shape[1])
-    assert engine.device_walk_bytes(toy_graph, CPU) == table
-    assert engine.device_walk_bytes(toy_graph, "cuda") == table + n * h * 16
+    table = walk_table.device_table_bytes(toy_graph)
+    n, h = toy_graph.nbr.shape[0], walk_table.lane_width(toy_graph.nbr.shape[1])
+    assert walk_table.device_walk_bytes(toy_graph, CPU) == table
+    assert walk_table.device_walk_bytes(toy_graph, "cuda") == table + n * h * 16
     cfg = ScaffoldConfig(**CFG, graph_placement="auto")
     card = WalkMesh(group=None, rank=0, size=4, local_rank=0, device=torch.device("cuda"))
     both = table + n * h * 16
@@ -221,7 +222,7 @@ def test_auto_placement_resolution(toy_graph, monkeypatch):
     assert tpipe._resolve_placement(cfg, toy_graph, mesh, m).graph_placement == "replicated"
     assert m.values["graph_placement"] == "replicated"
 
-    need = engine.device_table_bytes(toy_graph)
+    need = walk_table.device_table_bytes(toy_graph)
     monkeypatch.setattr(tpipe, "_device_memory_limit", lambda device: int(need / 0.75) - 4)
     m = Metrics()
     assert tpipe._resolve_placement(cfg, toy_graph, mesh, m).graph_placement == "rowshard"
@@ -232,7 +233,7 @@ def test_auto_placement_resolution(toy_graph, monkeypatch):
 
     # with no known limit, 16 GiB: a table that claims more flips to rowshard
     monkeypatch.setattr(tpipe, "_device_memory_limit", lambda device: None)
-    monkeypatch.setattr(engine, "device_table_bytes", lambda g: 13 * 2**30)
+    monkeypatch.setattr(walk_table, "device_table_bytes", lambda g: 13 * 2**30)
     assert tpipe._resolve_placement(cfg, toy_graph, mesh, Metrics()).graph_placement == \
         "rowshard"
     # ... but not without a multi-device mesh

@@ -73,6 +73,35 @@ def test_no_source_file_imports_the_reference_or_jax():
                     f"{os.path.relpath(path, ROOT)}:{node.lineno} imports {n}"
 
 
+def test_the_kernels_import_nothing_above_them():
+    """kernels/ lies below walk/engine.py, dist/ and pipeline.py, which import
+    it: no module there imports those, at module top or inside a function
+    (walk.plan's mode constants excepted: plan.py imports no engine)."""
+    package = "telomeri_tpu_torch"
+    above = tuple(f"{package}.{m}" for m in ("walk", "dist", "pipeline"))
+    files = sorted(glob.glob(os.path.join(ROOT, package, "kernels", "*.py")))
+    assert "walk_table.py" in {os.path.basename(f) for f in files}
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                if node.level:
+                    parent = f"{package}.kernels".rsplit(".", node.level - 1)[0]
+                    base = f"{parent}.{base}" if base else parent
+                names = [f"{base}.{a.name}" for a in node.names]
+            else:
+                continue
+            for n in names:
+                if n == f"{package}.walk.plan" or n.startswith(f"{package}.walk.plan."):
+                    continue
+                assert not any(n == a or n.startswith(a + ".") for a in above), \
+                    f"{os.path.relpath(path, ROOT)}:{node.lineno} imports {n}"
+
+
 def test_every_entry_point_leaves_the_reference_and_jax_unloaded(tmp_path):
     """One fresh interpreter: every module of the port imported, the lambda
     pipeline on one device and on a gloo world of 1 in both placements with

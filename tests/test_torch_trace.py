@@ -13,7 +13,7 @@ import torch
 
 from telomeri_tpu_torch.config import ScaffoldConfig
 from telomeri_tpu_torch.cli.main import main as cli_main
-from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts
+from telomeri_tpu_torch.kernels import launch_counts, reset_launch_counts, walk_table
 from telomeri_tpu_torch.pipeline import run_pipeline
 from telomeri_tpu_torch.utils import profiling
 from telomeri_tpu_torch.utils.logging import Metrics
@@ -105,7 +105,7 @@ def test_no_span_is_made_without_a_profiler(lambda_run, monkeypatch):
     monkeypatch.setattr(profiling, "_Range", counting)
     monkeypatch.setattr(torch.profiler, "record_function", counting)
     monkeypatch.setattr(torch.autograd.profiler, "record_function", counting)
-    gd = engine.graph_to_device(lambda_run.graph, "cpu")
+    gd = walk_table.graph_to_device(lambda_run.graph, "cpu")
     sections = engine.prepare_plan_sections(lambda_run.plan, "cpu")
     engine.run_walks_prepared(gd, sections, 0, n_anchors=lambda_run.graph.n_anchors,
                               max_steps=24)
@@ -127,7 +127,7 @@ def test_dispatch_spans_nest_and_stay_off_the_device_timeline(lambda_run):
     device's timeline as annotations over the kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    gd = engine.graph_to_device(lambda_run.graph, "cpu")
+    gd = walk_table.graph_to_device(lambda_run.graph, "cpu")
     sections = engine.prepare_plan_sections(lambda_run.plan, "cpu")
     assert [k for k, _ in sections] == ["greedy", "mc"]
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -150,7 +150,7 @@ def test_chunked_dispatch_names_each_chunk_and_its_download(lambda_run):
     from torch.profiler import ProfilerActivity, profile
 
     g, plan = lambda_run.graph, lambda_run.plan
-    gd = engine.graph_to_device(g, "cpu")
+    gd = walk_table.graph_to_device(g, "cpu")
     before = counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         res = engine.run_walks_chunked(gd, plan, 0, n_anchors=g.n_anchors, max_steps=24,

@@ -19,7 +19,7 @@ from telomeri_tpu.walk import engine as ref
 from telomeri_tpu.walk.oracle import jax_choice_fn, walk_oracle
 from telomeri_tpu.walk.plan import MODE_GREEDY_ES, MODE_GREEDY_OS, MODE_MC, plan_walks
 from telomeri_tpu_torch import interop
-from telomeri_tpu_torch.kernels import walk_scan
+from telomeri_tpu_torch.kernels import walk_common, walk_scan, walk_table
 from telomeri_tpu_torch.walk import engine
 
 # the reference's graph / plan / config as the port's classes
@@ -47,7 +47,7 @@ def test_graph_tables_match_reference(rng):
     g = random_graph(rng)
     want = np.asarray(ref.graph_to_device(g).wide)
     via_interop = interop.graph_dev_from_numpy(want)
-    own = engine.graph_to_device(G(g), "cpu")
+    own = walk_table.graph_to_device(G(g), "cpu")
     assert own.h == ref.graph_to_device(g).h
     np.testing.assert_array_equal(own.wide.numpy(), want)
     np.testing.assert_array_equal(via_interop.wide.numpy(), own.wide.numpy())
@@ -81,7 +81,7 @@ def test_walk_scan_records_match_reference_scan(rng):
     bits = ref._stable_bits_table(3, jnp.asarray(sub.uid), 12)
     want = _vmem_scan(gd, jnp.asarray(sub.start), jnp.transpose(bits), max_steps=12,
                       tile=len(sub), strategy="loop", interpret=True)
-    wide = engine.graph_to_device(G(g), "cpu").wide
+    wide = walk_table.graph_to_device(G(g), "cpu").wide
     got = walk_scan.walk_scan(wide, torch.from_numpy(sub.start), torch.from_numpy(sub.uid), 3, 12)
     given = walk_scan.walk_scan_torch(wide, torch.from_numpy(sub.start),
                                       torch.from_numpy(np.array(bits).view(np.int32)), 12)
@@ -105,7 +105,7 @@ def test_walk_scan_entry_matches_reference_mc_core(rng, max_steps, k):
     p = plan_walks(g, ScaffoldConfig(mc_walks_per_end=6, max_steps=max_steps))
     sub = _mc_section(g, p)
     sub.uid[len(sub) // 2:] += RESCUE_UID_BASE
-    gd = engine.graph_to_device(G(g), "cpu")
+    gd = walk_table.graph_to_device(G(g), "cpu")
     assert gd.h == (64 if k == 8 else 128)
     start, uid = torch.from_numpy(sub.start), torch.from_numpy(sub.uid)
     got = walk_scan.walk_scan(gd.wide, start, uid, seed, max_steps)
@@ -143,7 +143,7 @@ def test_kind_sections_match_reference(rng, kind):
         p = ref._slice_plan(p, lo, hi)
     want = ref._run_walks_kind(ref.graph_to_device(g), ref.plan_to_device(p), 5,
                                n_anchors=g.n_anchors, max_steps=10, kind=kind)
-    got = engine.run_walks_kind(engine.graph_to_device(G(g), "cpu"),
+    got = engine.run_walks_kind(walk_table.graph_to_device(G(g), "cpu"),
                                 engine.plan_to_device(P(p), "cpu"), 5,
                                 n_anchors=g.n_anchors, max_steps=10, kind=kind)
     assert_walks_equal(want, got)
@@ -159,7 +159,7 @@ def test_chain_graph_semantics_match_reference():
     p.active[3] = False
     want = ref.run_walks(ref.graph_to_device(g), ref.plan_to_device(p), 0,
                          n_anchors=g.n_anchors, max_steps=8)
-    got = engine.run_walks(engine.graph_to_device(G(g), "cpu"),
+    got = engine.run_walks(walk_table.graph_to_device(G(g), "cpu"),
                            engine.plan_to_device(P(p), "cpu"), 0,
                            n_anchors=g.n_anchors, max_steps=8)
     assert_walks_equal(want, got)
@@ -173,7 +173,7 @@ def test_sectioned_and_chunked_match_run_walks_host(rng, max_batch):
     want = ref.run_walks_host(g, p, cfg)
     got = engine.run_walks_host(G(g), P(p), C(cfg), "cpu")
     assert_walks_equal(want, got)
-    one = engine.run_walks_sectioned(engine.graph_to_device(G(g), "cpu"), P(p), cfg.mc_seed,
+    one = engine.run_walks_sectioned(walk_table.graph_to_device(G(g), "cpu"), P(p), cfg.mc_seed,
                                      n_anchors=g.n_anchors, max_steps=10)
     assert_walks_equal(want, one)
 
@@ -184,7 +184,7 @@ def test_engine_matches_oracle(rng, mode):
     cfg = ScaffoldConfig(mc_walks_per_end=3, max_steps=10)
     plan = plan_walks(g, cfg)
     sel = np.flatnonzero(plan.active & (plan.mode == mode))[:40]
-    r = engine.run_walks(engine.graph_to_device(G(g), "cpu"),
+    r = engine.run_walks(walk_table.graph_to_device(G(g), "cpu"),
                          engine.plan_to_device(P(plan), "cpu"), 11,
                          n_anchors=g.n_anchors, max_steps=10).to_numpy()
     choice = jax_choice_fn(11, 10)
@@ -262,7 +262,7 @@ def test_sum_steps_matches_xla_row_sum(w):
         xs.append(x)
     row_sums = jax.jit(lambda arrays: [jnp.sum(a, axis=1) for a in arrays])(xs)
     for x, want in zip(xs, row_sums):
-        got = engine._sum_steps(torch.from_numpy(x)).numpy().view(np.int32)
+        got = walk_common.sum_steps(torch.from_numpy(x)).numpy().view(np.int32)
         np.testing.assert_array_equal(got, np.asarray(want).view(np.int32),
                                       err_msg=f"S={x.shape[1]}")
 
@@ -296,7 +296,7 @@ def test_engines_match_reference_above_32_steps(rng, max_steps, dispatch):
         kw = dict(n_anchors=g.n_anchors, max_steps=max_steps)
         want = (ref._run_walks_mc_fast(gd, pd, cfg.mc_seed, **kw) if dispatch == "mc"
                 else ref._run_walks_kind(gd, pd, cfg.mc_seed, **kw, kind=dispatch))
-        got = engine.run_walks_kind(engine.graph_to_device(G(g), "cpu"),
+        got = engine.run_walks_kind(walk_table.graph_to_device(G(g), "cpu"),
                                     engine.plan_to_device(P(p), "cpu"), cfg.mc_seed, **kw,
                                     kind=dispatch)
     assert (np.asarray(want.steps) > 32).any()   # the windowed order is exercised

@@ -34,7 +34,7 @@ from telomeri_tpu.sim import PRESETS, simulate, write_dataset
 from telomeri_tpu.walk import engine as ref
 from telomeri_tpu.walk.plan import MODE_GREEDY_ES, MODE_GREEDY_OS, MODE_MC, WalkPlan, plan_walks
 from telomeri_tpu_torch import interop
-from telomeri_tpu_torch.kernels import greedy_scan, walk_events, walk_scan
+from telomeri_tpu_torch.kernels import greedy_scan, walk_events, walk_scan, walk_table
 from telomeri_tpu_torch.kernels.walk_common import MAX_STEPS, sum_steps
 from telomeri_tpu_torch.walk import engine
 from telomeri_tpu_torch.walk.rescue import RESCUE_UID_BASE
@@ -372,7 +372,7 @@ def test_greedy_kernel_on_lambda(lambda_problem, kind):
 @pytest.mark.parametrize("kind", ["greedy", "mixed"])
 def test_greedy_kernel_on_the_ecoli_model(ecoli_problem, kind):
     cfg, graph, _, cut, n_greedy = ecoli_problem
-    assert engine.lane_width(graph.nbr.shape[1]) == 64 and len(cut) > 2000
+    assert walk_table.lane_width(graph.nbr.shape[1]) == 64 and len(cut) > 2000
     if kind == "greedy":
         cut = _rows(cut, np.arange(n_greedy))
     got = _check_greedy(graph, cut, cfg.mc_seed, cfg.max_steps, kind)
@@ -385,7 +385,7 @@ def test_greedy_kernel_at_every_shape(rng, s_max, k):
     """Greedy and mixed sections at S = 1 ... 96 and H = 64, 128, 256, with
     rescue uids and a negative seed in the mixed one."""
     g = random_graph(rng, n_seqs=max(60, k), k=k)
-    assert engine.lane_width(g.nbr.shape[1]) == {8: 64, 100: 128, 200: 256}[k]
+    assert walk_table.lane_width(g.nbr.shape[1]) == {8: 64, 100: 128, 200: 256}[k]
     plan = plan_walks(g, ScaffoldConfig(mc_walks_per_end=2, max_steps=s_max))
     (lo, hi), (mc_lo, mc_hi) = plan.sections["greedy"], plan.sections["mc"]
     greedy = np.arange(lo, hi)[::max(1, (hi - lo) // 24)]   # 24 of the first edges
@@ -460,7 +460,7 @@ def test_greedy_kernel_on_rows_read_in_pages(rng):
     """H = 1024: rows wider than 512 slots, read in two pages, the pick a second
     load with the path tested again; greedy and mixed sections."""
     g = random_graph(rng, n_seqs=600, k=600)
-    assert engine.lane_width(g.nbr.shape[1]) == 1024
+    assert walk_table.lane_width(g.nbr.shape[1]) == 1024
     plan = plan_walks(g, ScaffoldConfig(mc_walks_per_end=1, max_steps=12))
     (lo, hi), (mc_lo, mc_hi) = plan.sections["greedy"], plan.sections["mc"]
     greedy = np.arange(lo, hi)[::max(1, (hi - lo) // 16)]
@@ -515,7 +515,7 @@ def test_greedy_kernel_edge_cases(kind):
     edges out of range (past H, on a pad slot, onto the start), inactive walks,
     MC walks on a dead row and into revisits, negative seeds, rescue uids."""
     g = _edge_case_table()
-    assert engine.lane_width(g.nbr.shape[1]) == 64
+    assert walk_table.lane_width(g.nbr.shape[1]) == 64
     start, first, mode, active = (np.array(c) for c in zip(*EDGE_CASE_WALKS))
     uid = np.arange(len(start), dtype=np.int32)
     uid[::3] += RESCUE_UID_BASE
@@ -685,7 +685,7 @@ def test_kernels_on_walks_hundreds_of_steps_long(kind):
                          ids=["1-32", "33-96", "97-160", "above-1024"])
 def test_step_sum_matches_the_xla_order(sizes):
     """StepSum (one value a step, as the kernels feed it) against sum_steps
-    (engine._sum_steps), which tests/test_torch_walk.py holds to XLA's own
+    (walk_common.py sum_steps), which tests/test_torch_walk.py holds to XLA's own
     row sum: every S of the range, and S past 32 * 32 where the window sums
     get windows of their own."""
     rng = np.random.default_rng(len(sizes))
@@ -705,7 +705,7 @@ def test_step_sum_matches_the_xla_order(sizes):
 def _small_problem(rng, s_max=9):
     g = random_graph(rng)
     plan = plan_walks(g, ScaffoldConfig(mc_walks_per_end=4, max_steps=s_max))
-    gd = engine.graph_to_device(interop.graph_from_reference(g), "cpu")
+    gd = walk_table.graph_to_device(interop.graph_from_reference(g), "cpu")
     return g, plan, gd, interop.plan_dev_from_numpy(plan)
 
 
