@@ -1007,6 +1007,10 @@ def phase_ecoli(ecoli_dir: str) -> dict:
     with open(out + ".metrics.json") as f:
         m = json.load(f)
     timings, metrics = m["timings_s"], m["metrics"]
+    plane = {k: m["counters"].get(k) for k in (
+        "walk.pick_plane_builds", "bytes.pick_plane", "walk.cum_span_words")}
+    require(plane["walk.pick_plane_builds"] and plane["walk.cum_span_words"],
+            f"E. coli metrics.json lacks the pick plane's counters: {plane}")
     dispatches = sorted(metrics.get("dispatches", {}))
     require(any(k.startswith("run_walks:") for k in dispatches) and
             any(k.startswith("score_edges:") for k in dispatches),
@@ -1029,7 +1033,8 @@ def phase_ecoli(ecoli_dir: str) -> dict:
          dispatches={k: metrics["dispatches"][k]["s"] for k in dispatches},
          counters={k: metrics.get(k) for k in (
              "n_walks_successful", "n_bridges_candidate", "n_bridges_accepted",
-             "n_bridges_rescued", "n_scaffolds", "parser_backend", "scoring_backend")})
+             "n_bridges_rescued", "n_scaffolds", "parser_backend", "scoring_backend")},
+         pick_plane=plane)
     require(n_scaffolds == 1, f"E. coli gave {n_scaffolds} scaffolds, want 1")
     require(rep["n_placed"] == 1, f"n_placed {rep['n_placed']}, want 1")
     require(rep["mean_identity"] > 0.98, f"mean identity {rep['mean_identity']} <= 0.98")
@@ -1118,6 +1123,20 @@ def _rowshard_fetch_cost(mesh, graph, plan) -> None:
          ms_per_step=ms, local_gather_ms_per_step=local_ms)
 
 
+def _stage_kernels(events: list) -> tuple[list[str], int]:
+    """The names of a profiler trace's device kernels in time order, less those
+    launched inside a `telomeri:walk.pick_plane` span (the plane's build, once
+    per table), and how many those were."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == "telomeri:walk.pick_plane"]
+    built = {e["args"]["correlation"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {}) and any(a <= e["ts"] <= b for a, b in spans)}
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    kept = [e["name"] for e in kernels if e.get("args", {}).get("correlation") not in built]
+    return kept, len(kernels) - len(kept)
+
+
 def phase_mesh(ecoli_dir: str, tmp: str) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1161,19 +1180,19 @@ def phase_mesh(ecoli_dir: str, tmp: str) -> None:
     files = os.listdir(trace) if os.path.isdir(trace) else []
     require(len(files) == 1, f"--trace wrote {files}")
     text = _read(os.path.join(trace, files[0])).decode()
-    kernels = [e["name"] for e in sorted(
-        (e for e in json.loads(text)["traceEvents"] if e.get("cat") == "kernel"),
-        key=lambda e: e["ts"])]
+    kernels, plane_kernels = _stage_kernels(json.loads(text)["traceEvents"])
     # the walk stage is the three walk kernels in a row, as the reference's is
-    # one program: no per-step stream of elementwise kernels between them
+    # one program: no per-step stream of elementwise kernels between them (the
+    # pick plane's one build per table, launched inside its own span, aside)
     at = {k: [i for i, name in enumerate(kernels) if f"{k}_kernel" in name] for k in WALK_KERNELS}
     require(all(at.values()), f"the replicated mesh trace lacks walk kernels: "
                               f"{ {k: len(v) for k, v in at.items()} }")
     window = kernels[min(at["greedy_scan"]):max(at["resolve_events"]) + 1]
     require(len(window) <= 2 * len(WALK_KERNELS),
             f"the walk stage ran {len(window)} device kernels: {window[:12]}")
+    require(plane_kernels > 0, "the traced run built no pick plane inside its span")
     emit("mesh_trace", file=files[0], bytes=len(text), device_kernels=len(kernels),
-         walk_stage_kernels=len(window), walk_stage=window,
+         walk_stage_kernels=len(window), walk_stage=window, pick_plane_kernels=plane_kernels,
          launches={k: len(v) for k, v in at.items()})
     run_pair(("b_rowshard", 1, "rowshard", paf),
              ("c_resume", 1, "replicated", ["--graph", graph_a, "--walks", walks_a]))

@@ -22,8 +22,9 @@ fold_in(key(seed), uid) (kernels/walk_common.py stable_bits_table).
                      per step); dist/rowshard.py runs it with a collective fetch
   - walk_scan_cuda   the hand-written kernel (csrc/walk_scan.cu): a sub-warp per
                      walk, the Threefry draw computed in registers, so no bits
-                     table exists on its path; it reads the cum block from
-                     `wide` and the pick from the pick plane
+                     table exists on its path; it reads the cum words below the
+                     row's span from `wide`, and the pick, with the next row's
+                     total and span, from the pick plane
   - walk_scan        (wide, start, uid, seed, S, picks=None): dispatch on the
                      tensors' device
 
@@ -31,8 +32,10 @@ Records come back as one (5, W, S) int32 tensor in the order above.
 
 The kernel picks from the table's pick plane (kernels/walk_table.py
 pick_plane), which GraphDev builds once and hands to every later scan; the
-kernel wrapper builds one for the call where none is passed. The plain version
-reads `wide` alone and never builds one.
+kernel wrapper builds one for the call where none is passed. Each entry also
+carries row_header of the row the pick leads to, so from its second step on the
+kernel reads only the cum words that can count (the same slot, on any table).
+The plain version reads `wide` alone and never builds one.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ lane_width(K) slots each, in the order BLOCKS: neighbour id, the running sum
 of the slots' MC weights, edge id, path-length advance (bp), and the ES and OS
 scores as float32 bits. A slot past the graph's K holds PAD, except that cum
 pads carry the row total. On a card the MC kernel also reads the table's pick
-plane (pick_plane). device_walk_bytes counts both from the shapes they are
-allocated with.
+plane (pick_plane), whose entries carry their destination row's header
+(row_header). device_walk_bytes counts both from the shapes they are allocated
+with.
 """
 
 from __future__ import annotations
@@ -23,11 +24,16 @@ from telomeri_tpu_torch.utils.profiling import count, count_copy, span
 
 BLOCKS = ("nbr", "cum", "eid", "adv", "es_bits", "os_bits")
 PAD = dict(nbr=-1, cum=0, eid=-1, adv=0, es_bits=0, os_bits=0)   # cum: see pack_wide
-# the blocks a step picks from, in the pick plane's order
+# the blocks a step picks from, in the pick plane's order: words 0-3 of an entry
 PICKED_BLOCKS = tuple(BLOCKS.index(b) for b in ("nbr", "eid", "adv", "es_bits"))
+# words 4-5 of an entry: row_header of the row the pick leads to; 6-7 are 0
+PLANE_WORDS = 8   # 32 bytes, one sector
+# rows x H entries of the plane built at a time: bounds the build's temporaries
+PLANE_BUILD_ENTRIES = 2**23
 
 count("walk.pick_plane_builds", 0)
 count("bytes.pick_plane", 0)
+count("walk.cum_span_words", 0)
 
 
 Blocks = namedtuple("Blocks", BLOCKS)
@@ -53,7 +59,7 @@ def table_shape(n: int, h: int) -> tuple[int, int]:
 
 
 def plane_shape(n: int, h: int) -> tuple[int, int, int]:
-    return n, h, len(PICKED_BLOCKS)
+    return n, h, PLANE_WORDS
 
 
 def nbytes(shape: tuple) -> int:
@@ -111,19 +117,55 @@ def dead_rows(n: int, h: int) -> np.ndarray:
 
 # --- on a device -------------------------------------------------------------------
 
+def row_header(cum: torch.Tensor) -> torch.Tensor:
+    """(R, 2) int32 {total, span} of (R, H) int32 cum rows. total = cum[H-1].
+    span = 1 + max{j : cum[j] < total} (0 where there is none), or H where
+    total <= 0. An MC step draws 0 <= r < total, so every word at j >= span is
+    >= total > r and never counted: a step that knows the span reads only
+    cum[:span] and picks the same slot, on any int32 row (pads, zero weights,
+    wrapped or non-monotone sums). A dead row (total <= 0) reads its whole
+    block, as r = 0 may count any word there."""
+    h = cum.shape[1]
+    total = cum[:, -1]
+    j = torch.arange(1, h + 1, dtype=torch.int32, device=cum.device)
+    span = torch.where(cum < total[:, None], j, 0).amax(1)
+    span = torch.where(total > 0, span, h)
+    return torch.stack([total, span], dim=1)
+
+
 def pick_plane(wide: torch.Tensor) -> torch.Tensor:
-    """(N, H, 4) int32 pick plane of the (N, 6H) table on its device: entry [v, j]
-    is slot j of node v's words of the PICKED_BLOCKS, pads included, so the four
-    words an MC step picks are one 16-byte sector instead of four sectors in
-    four blocks of the row. One plain copy (torch.stack of strided views) in
-    the span walk.pick_plane; counts walk.pick_plane_builds and bytes.pick_plane."""
+    """(N, H, 8) int32 pick plane of the (N, 6H) table on its device. Entry
+    [v, j]: words 0-3 slot j of node v's words of the PICKED_BLOCKS, pads
+    included, so the four words an MC step picks are one sector instead of
+    four sectors in four blocks of the row; words 4-5 row_header of u = nbr
+    (v itself at a pad, where the walk stays put), so the next step knows its
+    row's total and span before it reads the cum block; words 6-7 zero.
+    Built in blocks of rows, in the span walk.pick_plane; counts
+    walk.pick_plane_builds, bytes.pick_plane and walk.cum_span_words (the
+    sum of the rows' spans: over N x H, the share of the cum words a step
+    reads)."""
     h = table_h(wide)
+    n = wide.shape[0]
     b = blocks(wide)
-    with span("walk.pick_plane", N=wide.shape[0], H=h):
-        plane = torch.stack([b[i] for i in PICKED_BLOCKS], dim=2,
-                            out=wide.new_empty(plane_shape(wide.shape[0], h)))
+    rows = max(1, PLANE_BUILD_ENTRIES // h)
+    with span("walk.pick_plane", N=n, H=h):
+        plane = wide.new_empty(plane_shape(n, h))
+        head = wide.new_empty((n, 2))
+        for i in range(0, n, rows):
+            head[i:i + rows] = row_header(b.cum[i:i + rows])
+        words = head.view(torch.int64)[:, 0]   # a row's {total, span} as one 8-byte word
+        zero = wide.new_zeros(())
+        for i in range(0, n, rows):
+            picked = [b[block][i:i + rows] for block in PICKED_BLOCKS]
+            nbr = picked[0]
+            v = torch.arange(i, i + nbr.shape[0], dtype=torch.int32, device=wide.device)
+            dest = words[torch.where(nbr >= 0, nbr, v[:, None])].view(torch.int32)  # (rows, 2H)
+            torch.stack([*picked, dest[:, 0::2], dest[:, 1::2], *[zero.expand_as(nbr)] * 2],
+                        dim=2, out=plane[i:i + rows])
+        spans = int(head[:, 1].sum(dtype=torch.int64))
     count("walk.pick_plane_builds")
     count("bytes.pick_plane", plane.nbytes)
+    count("walk.cum_span_words", spans)
     return plane
 
 

@@ -35,7 +35,10 @@ what one run added under "counters" in metrics.json. The names:
   launch.<kernel>     kernel launches (kernels.launch_counts)
   walk.pick_plane_builds  pick planes built for the MC kernel (the span
                       walk.pick_plane): once per table, not once per dispatch
-  bytes.pick_plane    the bytes of those planes (N x H x 16 each)
+  bytes.pick_plane    the bytes of those planes (N x H x 32 each)
+  walk.cum_span_words the sum of the rows' spans over those planes' tables
+                      (kernels/walk_table.py row_header): over N x H, the
+                      share of a cum block an MC step on the card reads
 """
 
 from __future__ import annotations

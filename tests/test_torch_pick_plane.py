@@ -1,11 +1,17 @@
 """The MC walk scan's pick plane (kernels/walk_table.py pick_plane and
-GraphDev.picks): the (N, H, 4) int32 plane of {nbr, eid, adv, es_bits} a slot,
-read by the CUDA kernel for its pick, against the wide table it is built from.
+GraphDev.picks): the (N, H, 8) int32 plane of {nbr, eid, adv, es_bits} a slot
+and the {total, span} of the row the pick leads to (row_header), read by the
+CUDA kernel for its pick and the next step's cum read, against the wide table
+it is built from.
 
 On the CPU: the plane slot by slot against the CSR tables packed into `wide`,
-pads included; one build per GraphDev, none on a CPU scan or the row-sharded
-path; and the plain scan's records against a numpy transcription of the
-kernel's reads (the cum block from `wide`, the pick from the plane).
+pads included; the header of every entry against the destination row, on
+tables of the rows a span could get wrong (dead, degree 1, K = H, zero weights
+mid-row, int32-wrapped and non-monotone sums); the count below the span
+against the whole block's; one build per GraphDev, none on a CPU scan or the
+row-sharded path; and the plain scan's records against a plain torch model of
+the kernel's reads (the whole cum block at step 0, then only the chunks below
+the span the plane's header gives, and the pick from the plane).
 
 The gpu-marked tests hold the kernel with the plane to walk_scan_torch on the
 card. This file imports neither jax nor the reference package, so they run
@@ -47,13 +53,63 @@ def packed(rng, n: int, k: int) -> tuple[np.ndarray, tuple]:
     return walk_table.pack_wide(*tables, walk_table.lane_width(k)), tables
 
 
+ROW_KINDS = ("dead", "degree_1", "full", "zero_mid", "zero_all", "wrapped", "shuffled",
+             "random")
+
+
+def adversarial_wide(rng, n: int, h: int) -> np.ndarray:
+    """An (N, 6H) table whose rows cycle through ROW_KINDS: no edge; one edge
+    (span 0); K = H edges and no pad; zero weights mid-row (and at its end);
+    live edges of weight 0 (total 0); weights of 2**28 to 2**31, whose int32
+    running sums wrap (total of either sign, non-monotone); and live cum words
+    drawn at random over int32 with a positive last one."""
+    kind = np.arange(n) % len(ROW_KINDS)
+    deg = rng.integers(2, h + 1, n)
+    deg[kind == 0], deg[kind == 1], deg[kind == 2] = 0, 1, h
+    slot = np.arange(h)[None, :] < deg[:, None]
+    nbr = np.where(slot, rng.integers(0, n, (n, h)), -1)
+    weight = rng.integers(1, 5000, (n, h))
+    weight[kind == 3] *= rng.random(((kind == 3).sum(), h)) < 0.5
+    weight[kind == 4] = 0
+    weight[kind == 5] = rng.integers(2**28, 2**31, ((kind == 5).sum(), h))
+    cum = np.cumsum(np.where(slot, weight, 0), axis=1).astype(np.int32)   # wraps
+    for v in np.flatnonzero(kind == 6):
+        d = deg[v]
+        cum[v, :d] = rng.integers(-2**31, 2**31, d)
+        cum[v, d - 1] = rng.integers(1, 2**31)
+        cum[v, d:] = cum[v, d - 1]
+    es = np.where(slot, rng.uniform(0.5, 50, (n, h)), 0)
+    eid = np.where(slot, rng.integers(0, 10 * n, (n, h)), -1)
+    adv = np.where(slot, rng.integers(1, 3000, (n, h)), 0)
+    wide = walk_table.pack_wide(nbr, cum, eid, adv, es, es, h)
+    total = cum[:, -1]
+    assert (total[kind == 5] < 0).any() and (total[kind == 5] > 0).any()
+    return wide
+
+
+def header_of(cum: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """total and span of each (H,) cum row, by the rule's words."""
+    h = cum.shape[1]
+    total = cum[:, -1]
+    span = np.array([h if t <= 0 else (np.flatnonzero(c < t).max() + 1 if (c < t).any() else 0)
+                     for c, t in zip(cum, total)])
+    return total, span
+
+
+def tables(kind: str, k: int, seed: int, n: int = 200) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return packed(rng, n, k)[0]
+    return adversarial_wide(rng, n, walk_table.lane_width(k))
+
+
 @pytest.mark.parametrize("k", [48, 100, 200])   # H = 64, 128, 256
 def test_pick_plane_is_the_four_picked_blocks_slot_by_slot(k):
     rng = np.random.default_rng(k)
     wide, (nbr, _, eid, adv, es, _) = packed(rng, 300, k)
     h = walk_table.lane_width(k)
     plane = walk_table.pick_plane(torch.from_numpy(wide)).numpy()
-    assert plane.shape == (300, h, 4) and plane.dtype == np.int32
+    assert plane.shape == (300, h, 8) and plane.dtype == np.int32
     es_bits = es.astype(np.float32).view(np.int32)
     for word, table, pad in ((0, nbr, -1), (1, eid, -1), (2, adv, 0), (3, es_bits, 0)):
         np.testing.assert_array_equal(plane[:, :k, word], table.astype(np.int32))
@@ -61,6 +117,61 @@ def test_pick_plane_is_the_four_picked_blocks_slot_by_slot(k):
     # and against the wide row itself: word i of slot j is column j of block 0, 2, 3, 4
     for word, block in enumerate(walk_table.PICKED_BLOCKS):
         np.testing.assert_array_equal(plane[:, :, word], wide[:, block * h:(block + 1) * h])
+    assert (plane[:, :, 6:] == 0).all()
+
+
+@pytest.mark.parametrize("entries", [None, 7 * 64 + 5], ids=["one-block", "ragged-blocks"])
+@pytest.mark.parametrize("kind", ["adversarial", "random"])
+@pytest.mark.parametrize("k", [64, 100])   # H = 64 (K = H), 128
+def test_plane_header_is_the_destination_rows_total_and_span(k, kind, entries, monkeypatch):
+    """Words 4-5 of every entry, pads included, are total and span of u = nbr
+    (the entry's own row at a pad), by the rule's words; 6-7 are zero; built
+    in one block or in blocks of rows that end mid-table."""
+    if entries is not None:
+        monkeypatch.setattr(walk_table, "PLANE_BUILD_ENTRIES", entries)
+    wide = tables(kind, k, k + len(kind))
+    h = walk_table.lane_width(k)
+    plane = walk_table.pick_plane(torch.from_numpy(wide)).numpy()
+    total, span = header_of(walk_table.blocks(wide).cum)
+    nbr = walk_table.blocks(wide).nbr
+    u = np.where(nbr >= 0, nbr, np.arange(len(wide))[:, None])
+    np.testing.assert_array_equal(plane[:, :, 4], total[u])
+    np.testing.assert_array_equal(plane[:, :, 5], span[u])
+    assert (plane[:, :, 6:] == 0).all()
+    if kind == "adversarial":   # each kind of row is there, and led to
+        assert (span == 0).any() and (span == h).any() and (nbr >= 0).all(1).any()
+        assert (plane[:, :, 5] == 0).any() and (plane[:, :, 4] < 0).any()
+
+
+@pytest.mark.parametrize("k", [64, 100, 200])   # H = 64 (K = H), 128, 256
+def test_count_below_the_span_is_the_whole_blocks(k):
+    """For every row and every r in [0, total) at which the count can change
+    (0, total - 1, and each cum word and its neighbours), #{j < span : cum[j] <=
+    r} equals #{j : cum[j] <= r}; a dead row's span is its whole block."""
+    wide = tables("adversarial", k, 3 * k)
+    cum = walk_table.blocks(wide).cum.astype(np.int64)
+    head = walk_table.row_header(torch.from_numpy(walk_table.blocks(wide).cum)).numpy()
+    h = cum.shape[1]
+    for c, (total, span) in zip(cum, head):
+        if total <= 0:
+            assert span == h
+            continue
+        r = np.unique(np.concatenate([[0, total - 1], c - 1, c, c + 1]))
+        r = r[(r >= 0) & (r < total)]
+        np.testing.assert_array_equal((c[:span, None] <= r).sum(0), (c[:, None] <= r).sum(0))
+
+
+def test_pick_plane_of_an_empty_table():
+    plane = walk_table.pick_plane(torch.zeros((0, 6 * 64), dtype=torch.int32))
+    assert plane.shape == (0, 64, 8) and plane.dtype == torch.int32
+
+
+def test_cum_span_words_counts_the_rows_spans():
+    wide = tables("adversarial", 64, 5)
+    _, span = header_of(walk_table.blocks(wide).cum)
+    before = counters().get("walk.cum_span_words", 0)
+    walk_table.pick_plane(torch.from_numpy(wide))
+    assert counters()["walk.cum_span_words"] - before == span.sum() > 0
 
 
 def test_pick_plane_rejects_what_is_no_wide_table():
@@ -76,7 +187,7 @@ def test_graph_dev_builds_its_plane_once():
     before_builds, before_bytes = builds(), counters().get("bytes.pick_plane", 0)
     planes = [gd.picks for _ in range(4)]
     assert builds() - before_builds == 1
-    assert counters()["bytes.pick_plane"] - before_bytes == 200 * 64 * 16
+    assert counters()["bytes.pick_plane"] - before_bytes == 200 * 64 * 32
     assert all(p is planes[0] for p in planes)
     assert gd.h == 64 and gd.wide.shape == (200, 6 * 64)
 
@@ -163,36 +274,56 @@ def test_row_sharded_path_builds_no_plane(monkeypatch):
     assert res.n_rows == len(plan) > 0
 
 
-def scan_from_plane(wide: np.ndarray, plane: np.ndarray, start: np.ndarray, bits: np.ndarray,
-                    s: int) -> np.ndarray:
-    """The kernel's reads in numpy: the cum block of row `cur` from `wide`, the
-    four picked words from plane[cur, choice]; (5, W, S) records."""
+def scan_from_plane(wide: torch.Tensor, plane: torch.Tensor, start: torch.Tensor,
+                    bits: torch.Tensor, s: int) -> torch.Tensor:
+    """The kernel's reads in plain torch: at step 0 the row's total from `wide`
+    and its whole cum block; at every later step the total and span from the
+    header of the entry the step before picked, and only the 16-byte chunks of
+    the cum block whose first word lies below the span (an unloaded chunk
+    counts nothing); the picked words from plane[cur, choice]. (5, W, S)
+    records."""
     h = plane.shape[1]
-    cur = start.astype(np.int64)
-    out = np.empty((5, len(start), s), np.int32)
+    cur = start.long()
+    total = wide[cur, 2 * h - 1]
+    span = torch.full_like(total, h)
+    chunk_start = torch.arange(h) // 4 * 4   # the first word of each word's chunk
+    out = torch.empty((5, len(start), s), dtype=torch.int32)
     for t in range(s):
-        cum = wide[cur, h:2 * h]
-        total = cum[:, -1]
-        r = (bits[t].astype(np.int64) & 0x7FFFFFFF) % np.maximum(total, 1)
-        choice = np.minimum((cum <= r[:, None]).sum(1), h - 1)
-        nbr, eid, adv, es = plane[cur, choice].T
-        out[:, :, t] = nbr, total, eid, adv, es
-        cur = np.where(nbr >= 0, nbr, cur)
+        r = torch.remainder(bits[t].long() & 0x7FFFFFFF, total.long().clamp_min(1))
+        loaded = chunk_start[None, :] < span[:, None]
+        count = ((wide[cur, h:2 * h] <= r[:, None]) & loaded).sum(1)
+        entry = plane[cur, count.clamp_max(h - 1)]   # (W, 8)
+        nbr = entry[:, 0]
+        out[:, :, t] = torch.stack([nbr, total, entry[:, 1], entry[:, 2], entry[:, 3]])
+        cur = torch.where(nbr >= 0, nbr.long(), cur)
+        total, span = entry[:, 4], entry[:, 5]
     return out
+
+
+def scan_matches_the_model(kind: str, k: int, s: int) -> torch.Tensor:
+    wide = torch.from_numpy(tables(kind, k, k + s, n=400))
+    w = 300
+    rng = np.random.default_rng(k * s)
+    start = torch.from_numpy(rng.integers(0, 400, w).astype(np.int32))
+    uid = torch.from_numpy(rng.integers(-2**31, 2**31, w).astype(np.int32))
+    bits = stable_bits_table(-77, uid, s)
+    got = walk_scan.walk_scan_torch(wide, start, bits, s)
+    plane = walk_table.pick_plane(wide)
+    torch.testing.assert_close(got, scan_from_plane(wide, plane, start, bits, s),
+                               rtol=0, atol=0)
+    return got
 
 
 @pytest.mark.parametrize("k,s", [(48, 32), (100, 30), (200, 9)])
 def test_plain_scan_records_equal_the_kernels_reads_from_the_plane(k, s):
-    rng = np.random.default_rng(k + s)
-    wide, _ = packed(rng, 400, k)
-    w = 300
-    start = rng.integers(0, 400, w).astype(np.int32)
-    uid = torch.from_numpy(rng.integers(-2**31, 2**31, w).astype(np.int32))
-    bits = stable_bits_table(-77, uid, s)
-    got = walk_scan.walk_scan_torch(torch.from_numpy(wide), torch.from_numpy(start), bits, s)
-    plane = walk_table.pick_plane(torch.from_numpy(wide)).numpy()
-    np.testing.assert_array_equal(got.numpy(), scan_from_plane(wide, plane, start,
-                                                               bits.numpy(), s))
+    scan_matches_the_model("random", k, s)
+
+
+@pytest.mark.parametrize("k,s", [(64, 32), (128, 13), (100, 30)])   # H = 64 (K = H), 128
+def test_plain_scan_records_equal_the_kernels_reads_on_adversarial_tables(k, s):
+    got = scan_matches_the_model("adversarial", k, s)
+    # pads, dead rows and the rows of wrapped or shuffled sums were walked
+    assert (got[0] < 0).any() and (got[1] <= 0).any() and (got[1] > 2**30).any()
 
 
 # --- on the card ----------------------------------------------------------------------
@@ -204,18 +335,23 @@ def _cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
 @pytest.mark.parametrize("given", [True, False], ids=["picks", "no-picks"])
 @pytest.mark.parametrize("s", [32, 30])
 @pytest.mark.parametrize("k", [64, 100, 200, 400])   # H = 64, 128, 256 and 512 (<16, 0>)
-def test_kernel_with_plane_equals_plain_scan(k, s, given):
+def test_kernel_with_plane_equals_plain_scan(k, s, given, kind):
+    """The kernel's records equal the plain scan's, on random tables and on
+    tables of every row kind a span could get wrong (K = H at H = 64)."""
     dev = _cuda()
     rng = np.random.default_rng(k * s)
     n, w = 3000, 20_000
-    wide = torch.from_numpy(packed(rng, n, k)[0]).to(dev)
+    wide = torch.from_numpy(tables(kind, k, k * s, n=n)).to(dev)
     start = torch.from_numpy(rng.integers(0, n, w).astype(np.int32)).to(dev)
     uid = torch.from_numpy(rng.integers(-2**31, 2**31, w).astype(np.int32)).to(dev)
     seed = int(rng.integers(0, 2**31))
     picks = walk_table.pick_plane(wide) if given else None
+    if given:   # the card builds the plane the CPU builds
+        assert torch.equal(picks.cpu(), walk_table.pick_plane(wide.cpu()))
     before = builds()
     got = walk_scan.walk_scan_cuda(wide, start, uid, seed, s, picks=picks)
     assert builds() - before == (0 if given else 1)
@@ -227,14 +363,14 @@ def test_kernel_with_plane_equals_plain_scan(k, s, given):
 
 @pytest.mark.gpu
 def test_kernel_reads_plane_offsets_past_2_to_the_31_words():
-    """H = 256 and 2.2M rows: a 13.5 GB table and a 9.0 GB plane, made on the
-    card, whose upper rows lie past 2**31 words of the plane; walks start and
-    mostly stay among them."""
+    """H = 256 and 2.2M rows: a 13.5 GB table and an 18.0 GB plane, made on
+    the card, whose upper rows lie past 2**31 words of the plane; walks start
+    and mostly stay among them."""
     dev = _cuda()
     n, k, h, w, s = 2_200_000, 200, 256, 16_384, 32
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
-    top = 2**31 // (4 * h)   # the first row whose plane offset passes 2**31 words
+    top = 2**31 // (8 * h)   # the first row whose plane offset passes 2**31 words
     rand = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen, device=dev,
                                                dtype=torch.int32)
     wide = torch.empty((n, 6 * h), dtype=torch.int32, device=dev)

@@ -186,7 +186,7 @@ def test_plan_not_divisible_raises(toy_graph):
 
 def test_auto_placement_counts_the_pick_plane_on_a_card(toy_graph, monkeypatch):
     """On a card each replicated rank builds the MC kernel's pick plane beside
-    the table (2/3 of it, N x H x 16 B): a table that fits the 75% budget alone
+    the table (4/3 of it, N x H x 32 B): a table that fits the 75% budget alone
     but not with its plane is row-sharded there, and replicated on a CPU mesh,
     which builds no plane."""
     from telomeri_tpu_torch.utils.logging import Metrics
@@ -194,10 +194,10 @@ def test_auto_placement_counts_the_pick_plane_on_a_card(toy_graph, monkeypatch):
     table = walk_table.device_table_bytes(toy_graph)
     n, h = toy_graph.nbr.shape[0], walk_table.lane_width(toy_graph.nbr.shape[1])
     assert walk_table.device_walk_bytes(toy_graph, CPU) == table
-    assert walk_table.device_walk_bytes(toy_graph, "cuda") == table + n * h * 16
+    assert walk_table.device_walk_bytes(toy_graph, "cuda") == table + n * h * 32
     cfg = ScaffoldConfig(**CFG, graph_placement="auto")
     card = WalkMesh(group=None, rank=0, size=4, local_rank=0, device=torch.device("cuda"))
-    both = table + n * h * 16
+    both = table + n * h * 32
     resolve = lambda mesh: tpipe._resolve_placement(cfg, toy_graph, mesh,
                                                     Metrics()).graph_placement
     # the table alone fits, table and plane do not
